@@ -10,7 +10,13 @@ Phases, in order; any failure ends the run with a nonzero exit:
 3. kernels — each kernel against its plain PyTorch version on the card
    (bit for bit, overflow flags included) on seeded inputs: the
    north-star shapes, a ragged object count, full-range u32 counters,
-   forced member/union overflow, and the prebiased round trip; then, at
+   forced member/union overflow, and the prebiased round trip; K1 and K2
+   in every instantiation and by both copy routes (odd widths, u_cap=32,
+   M=32 at u_cap=16, three objects, ragged-N views, unaligned planes,
+   duplicate ids) through each alignment path (one match or the loop),
+   and K2's direct route for stages too wide for shared memory (A=256,
+   M=64);
+   then, at
    the main path's own shapes, each kernel against its plain version
    again and their times beside the kernel's bound;
 4. main path — the north-star anti-entropy fold (A=64, M=16, D=2, R=8,
@@ -32,6 +38,7 @@ Needs one CUDA card; exits nonzero without one.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -144,6 +151,17 @@ def full_range(rng, planes):
     return clock, ids, dots, d_ids, d_clocks
 
 
+def shifted(t):
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary: the kernels must stage it by per-lane cp.async."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 # -- phase 3 -------------------------------------------------------------------
 
 
@@ -237,7 +255,108 @@ def check_kernels(dev):
         cmp(name, back, biased_call(), "prebiased round trip")
     torch.cuda.synchronize()
     log(f"overflow rows flagged (forced): {over_seen}")
+    check_routes(dev, rng, cmp)
     return worst
+
+
+def check_routes(dev, rng, cmp):
+    """K1 and K2 in every instantiation (accumulator in registers or in
+    shared memory; actor width at compile or run time) and by both copy
+    routes (bulk copies, per-lane cp.async), bit for bit against their
+    plain versions; raises unless every combination was taken."""
+    from crdt_tpu_torch.ops import orswot_fold_aligned as fa, orswot_tile as tile
+    from crdt_tpu_torch.utils.testdata import anti_entropy_fleets, random_orswot_arrays
+
+    seen = {"orswot_fold_aligned": set(), "orswot_merge": set()}
+
+    def fleets(n, a, m, d, r, base, novel):
+        return to_dev(stack_np(anti_entropy_fleets(rng, n, a, m, d, r, base=base, novel=novel,
+                                                   deferred_frac=0.5)), dev)
+
+    def fold(st, m, d, u_cap, what):
+        plan = fa.fold_plan(st, d, u_cap)
+        seen["orswot_fold_aligned"].add((plan["union_slots"] > 0, plan["bulk"], plan["align"]))
+        for plunger in (True, False):
+            got = fa.fold_merge(*st, m, d, u_cap=u_cap, plunger=plunger, prebiased=True)
+            want = fa.fold_merge_reference(*st, m, d, u_cap=u_cap, plunger=plunger)
+            cmp("orswot_fold_aligned", got, want, f"{what} {plan}")
+
+    def merge(sa, sb, m_cap, d_cap, what):
+        plan = tile.merge_plan(sa, sb, m_cap)
+        seen["orswot_merge"].add((plan["actors_per_lane"] > 0, plan["route"], plan["align"]))
+        got = tile.merge(*sa, *sb, m_cap, d_cap, prebiased=True)
+        cmp("orswot_merge", got, tile.merge_reference(*sa, *sb, m_cap, d_cap), f"{what} {plan}")
+
+    def pair(n, a, m, d, **kw):
+        return (to_dev(random_orswot_arrays(rng, n, a, m, d, max_counter=6, deferred_frac=0.6,
+                                            **kw), dev),
+                to_dev(random_orswot_arrays(rng, n, a, m, d, max_counter=6, deferred_frac=0.6,
+                                            **kw), dev))
+
+    ns = fleets(CHECK_N, A, M, D, R, BASE, NOVEL)
+    fold(ns, M, D, U_CAP, "north-star fleets")
+    fold(tuple(shifted(x) for x in ns), M, D, U_CAP, "north-star fleets, unaligned")
+    fold(tuple(x[:, :3].contiguous() for x in ns), M, D, U_CAP, "n=3")
+    odd = fleets(CHECK_N + 3, 37, 5, 3, 3, 2, 1)
+    fold(odd, 5, 3, 10, "A=37 M=5 D=3")
+    wide = fleets(CHECK_N, A, 32, D, 4, 20, 3)
+    fold(wide, 32, D, 32, "u_cap=32 M=32 m_cap=32")
+    fold(tuple(shifted(x) for x in wide), 32, D, 32, "u_cap=32 M=32 m_cap=32, unaligned")
+    rag = fleets(CHECK_N + 3, A, M, D, R + 1, BASE, NOVEL)
+    view = tuple(x[1:] for x in rag)  # d_ids starts only 8-byte aligned
+    if view[3].data_ptr() % 16 != 8:
+        raise AssertionError("ragged view is not 8-byte aligned")
+    fold(view, M, D, U_CAP, "ragged-N view")
+    # a replica holding one id in two rows (invalid state): alignment joins
+    # them; at M=32 with u_cap=16 too (register accumulator, 32 member rows)
+    for st, m, what in ((ns, M, ""), (fleets(CHECK_N, A, 32, D, 4, 8, 2), 32, " M=32 u_cap=16")):
+        dup = [x.clone() for x in st]
+        dup[1][3, ::2, 1] = dup[1][3, ::2, 0]
+        fold(tuple(dup), m, D, U_CAP, "duplicate ids in a replica" + what)
+        fold(tuple(shifted(x) for x in dup), m, D, U_CAP,
+             "duplicate ids in a replica" + what + ", unaligned")
+
+    sa, sb = pair(CHECK_N, A, M, D)
+    merge(sa, sb, M, D, "north-star pair")
+    merge(tuple(shifted(x) for x in sa), tuple(shifted(x) for x in sb), M, D,
+          "north-star pair, unaligned")
+    merge(tuple(x[:3].contiguous() for x in sa), tuple(x[:3].contiguous() for x in sb), M, D,
+          "n=3")
+    merge(*pair(CHECK_N + 3, 37, 5, 3), 5, 3, "A=37 M=5 D=3")
+    merge(*pair(CHECK_N + 3, 36, 8, 2), 8, 2, "A=36 M=8 D=2")
+    wide = pair(CHECK_N, A, 32, D)
+    merge(*wide, 32, D, "M=32 m_cap=32")
+    merge(*(tuple(shifted(x) for x in s) for s in wide), 32, D, "M=32 m_cap=32, unaligned")
+    merge(*pair(CHECK_N + 3, 37, 20, 3), 20, 3, "A=37 M=20 D=3")
+    merge(*pair(CHECK_N + 3, 36, 20, 2), 20, 2, "A=36 M=20 D=2")
+    # stages too wide for shared memory: the direct route
+    merge(*pair(67, 256, 64, D, min_live=24), 64, D, "A=256 M=64 m_cap=64")
+    merge(tuple(x[1] for x in rag), tuple(x[2] for x in rag), M, D, "ragged-N view")
+    # two live slots of one side with one id: the slow path of the rank
+    # selection (ids summed as id + 1, rows maxed)
+    dup_a = list(pair(CHECK_N, A, M, D, min_live=4)[0])
+    ids = dup_a[1].clone()
+    ids[::2, 1] = ids[::2, 0]
+    dup_a[1] = ids
+    merge(tuple(dup_a), sb, M, D, "duplicate live ids")
+
+    # (registers or compile-time A, copy route, alignment path): every
+    # instantiation by both copy routes through each alignment path it has
+    want = {
+        "orswot_fold_aligned": {(regs, bulk, align) for regs in (True, False)
+                                for bulk in (True, False)
+                                for align in (("match", "loop") if regs else ("loop",))},
+        "orswot_merge": {(apl, route, align) for apl in (True, False)
+                         for route in ("bulk", "words") for align in ("match", "loop")}
+        | {(False, "direct", "loop")},
+    }
+    for name, got in seen.items():
+        if got != want[name]:
+            raise AssertionError(f"{name}: instantiation x route combinations taken {got}")
+    log("  K1 and K2: every instantiation by both copy routes and both alignment paths "
+        "bit-equal to the plain versions (A=37 M=5 D=3, u_cap=32, M=32 u_cap=16, n=3, "
+        "ragged-N views, unaligned copies, duplicate ids, duplicate live ids), K2's direct "
+        "route at A=256 M=64")
 
 
 def time_kernels(dev, planes, worst):
@@ -425,9 +544,15 @@ def main() -> int:
     log(f"  built {sorted(secs)} in {time.perf_counter() - t0:.1f} s (per source: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()) + ")")
     for name, info in _build.BUILD_LOG.items():
+        entry = ""
         for line in info["ptxas"].splitlines():
+            m = re.search(r"Compiling entry function '\S*?(orswot_\w*?kernel)(I.*?E)?E", line)
+            if m:  # the kernel, and its instantiation's template arguments, e.g. <16,2>
+                targs = re.findall(r"Li(\d+)E", m.group(2) or "")
+                entry = (f"<{','.join(targs)}>" if targs else "") + (
+                    " direct" if "direct" in m.group(1) else "")
             if "registers" in line or "spill" in line:
-                log(f"  ptxas[{name}]: {line.strip()}")
+                log(f"  ptxas[{name}{entry}]: {line.strip()}")
 
     log("== phase 3: kernels vs plain versions")
     worst = check_kernels(dev)

@@ -37,6 +37,7 @@ P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNELS = {
     "orswot_merge": ("orswot_merge.cu", {
         "orswot_merge_launch": [P] * 16 + [LL] + [I] * 7 + [P],
+        "orswot_merge_plan": [P] * 8 + [I] * 6,
     }),
     "orswot_fold": ("orswot_fold.cu", {
         "orswot_fold_launch": [P] * 12 + [I, LL] + [I] * 6 + [P],
@@ -45,6 +46,7 @@ KERNELS = {
     "orswot_fold_aligned": ("orswot_fold_aligned.cu", {
         "orswot_fold_aligned_launch": [P] * 11 + [I, LL] + [I] * 7 + [P],
         "orswot_fold_aligned_smem_per_warp": [I] * 7,
+        "orswot_fold_aligned_plan": [P] * 4 + [I] * 5,
     }),
 }
 _RESTYPES = {
@@ -52,7 +54,7 @@ _RESTYPES = {
     "orswot_fold_aligned_smem_per_warp": LL,
 }
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[tuple, ctypes.CDLL] = {}
 _LAUNCHES = {name: 0 for name in KERNELS}
 #: build seconds and ptxas report of each library built by this process
 BUILD_LOG: dict[str, dict] = {}
@@ -76,29 +78,31 @@ def _nvcc() -> str:
     )
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(name: str, extra: tuple[str, ...] = ()) -> Path:
     src, _ = KERNELS[name]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(extra)).encode())
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / src]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names=None) -> dict[str, float]:
+def build_all(names=None, extra: tuple[str, ...] = ()) -> dict[str, float]:
     """Build every kernel library that is not built yet, one ``nvcc`` per
-    source, all started together.  Returns the seconds each build took
-    (0.0 for a library already on disk)."""
+    source, all started together; ``extra`` adds compiler flags (such as
+    a ``-D`` that switches on instrumentation) and names a separate
+    library.  Returns the seconds each build took (0.0 for a library
+    already on disk)."""
     names = list(KERNELS if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs, seconds = {}, {}
     for name in names:
-        out = _lib_path(name)
+        out = _lib_path(name, extra)
         if out.exists():
             seconds[name] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
+        cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
         try:
             proc = subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -113,7 +117,8 @@ def build_all(names=None) -> dict[str, float]:
     for name, (proc, tmp, out, t0) in procs.items():
         stdout, stderr = proc.communicate()
         seconds[name] = time.perf_counter() - t0
-        BUILD_LOG[name] = {"seconds": seconds[name], "ptxas": stderr}
+        BUILD_LOG[f"{name}[{' '.join(extra)}]" if extra else name] = {
+            "seconds": seconds[name], "ptxas": stderr}
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{stdout}{stderr}")
             tmp.unlink(missing_ok=True)
@@ -124,20 +129,22 @@ def build_all(names=None) -> dict[str, float]:
     return seconds
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
-    lib = _LIBS.get(name)
+def library(name: str, extra: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (built with the extra
+    compiler flags ``extra``), built first if needed."""
+    key = (name, tuple(extra))
+    lib = _LIBS.get(key)
     if lib is not None:
         return lib
-    build_all([name])
-    lib = ctypes.CDLL(str(_lib_path(name)))
+    build_all([name], extra)
+    lib = ctypes.CDLL(str(_lib_path(name, extra)))
     for fn, argtypes in KERNELS[name][1].items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = _RESTYPES.get(fn, I)
     lib.orswot_error_string.argtypes = [I]
     lib.orswot_error_string.restype = ctypes.c_char_p
-    _LIBS[name] = lib
+    _LIBS[key] = lib
     return lib
 
 

@@ -168,6 +168,20 @@ def fold_merge_reference(clock, ids, dots, dids, dclocks, m_cap: int, d_cap: int
             torch.stack([m_over, d_over], dim=-1))
 
 
+def fold_plan(st, d_cap: int, u_cap: int) -> dict:
+    """The instantiation, alignment path and copy route
+    ``csrc/orswot_fold_aligned.cu`` takes for these biased ``[R, N, ...]``
+    CUDA planes: ``{"union_slots": 16 in registers, 0 in shared memory,
+    "actors_per_lane": 2 in registers, 0 in shared memory, "bulk": bool,
+    "align": "match" (one __match_any_sync per replica) | "loop"}``."""
+    a, m, d = st[0].shape[-1], st[1].shape[-1], st[3].shape[-1]
+    code = _build.library("orswot_fold_aligned").orswot_fold_aligned_plan(
+        st[0].data_ptr(), st[1].data_ptr(), st[2].data_ptr(), st[4].data_ptr(), a, m, d, d_cap,
+        u_cap)
+    return {"union_slots": code % 10000 // 100, "actors_per_lane": code // 10 % 10,
+            "bulk": bool(code % 10), "align": "match" if code // 10000 else "loop"}
+
+
 def fold_merge(clock, ids, dots, dids, dclocks, m_cap: int, d_cap: int,
                u_cap: int | None = None, plunger: bool = True, prebiased: bool = False):
     """Anti-entropy fold of ``R`` stacked replica fleets (``[R, N, ...]``

@@ -28,6 +28,7 @@ import torch
 
 from .. import _build
 from ..dtypes import EMPTY, INT32_MAX, ZERO32, bias_torch_u32, unbias_torch_u32
+from ..error import KernelError
 
 ZERO = ZERO32
 _COUNTER_PLANES = (0, 2, 4)
@@ -326,6 +327,29 @@ def merge(
               batch + (d_cap, a), batch + (2,))
     res = tuple(x.view(s) for x, s in zip(out, shapes))
     return _leave(res[:5], prebiased) + (res[5].bool(),)
+
+
+_MERGE_ROUTES = ("words", "bulk", "direct")
+
+
+def merge_plan(sa, sb, m_cap: int) -> dict:
+    """The instantiation, route and alignment path ``csrc/orswot_merge.cu``
+    takes for these biased CUDA planes: ``{"actors_per_lane": 2 or 0
+    (run-time A), "route": "bulk" | "words" (staged by bulk copies or
+    per-lane cp.async) | "direct" (stages too wide for shared memory: read
+    from device memory), "align": "match" (one __match_any_sync) |
+    "loop"}``."""
+    a, ma, mb, da, db = sa[0].shape[-1], sa[1].shape[-1], sb[1].shape[-1], sa[3].shape[-1], \
+        sb[3].shape[-1]
+    lib = _build.library("orswot_merge")
+    code = lib.orswot_merge_plan(*(t.data_ptr() for i, t in enumerate(sa) if i != 3),
+                                 *(t.data_ptr() for i, t in enumerate(sb) if i != 3),
+                                 a, ma, mb, da, db, m_cap)
+    if code < 0:
+        raise KernelError(f"orswot_merge_plan: CUDA error {-code} "
+                          f"({lib.orswot_error_string(-code).decode(errors='replace')})")
+    return {"actors_per_lane": code % 100 // 10, "route": _MERGE_ROUTES[code % 10],
+            "align": "match" if code // 100 else "loop"}
 
 
 def fold_merge(clock, ids, dots, dids, dclocks, m_cap: int, d_cap: int,

@@ -74,6 +74,121 @@ def test_fold_kernels_without_plunger_and_single_replica(dev):
                    tile.fold_merge_reference(*sub, 6, 2, plunger=plunger))
 
 
+def _shifted(t):
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary, so the kernels must stage it by per-lane cp.async."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# id: (seed, n, a, m, d, r, fleet kwargs, u_cap, shifted, expected plan)
+K1_ROUTES = {
+    "regs16_bulk": (3, 67, 64, 16, 2, 8, dict(base=6, novel=1), 16, False, (16, 2, True, "match")),
+    "regs16_words": (4, 67, 64, 16, 2, 8, dict(base=6, novel=1), 16, True, (16, 2, False, "match")),
+    "wide_u32_bulk": (5, 45, 64, 32, 2, 4, dict(base=20, novel=3), 32, False, (0, 0, True, "loop")),
+    "wide_u32_words": (6, 45, 64, 32, 2, 4, dict(base=20, novel=3), 32, True, (0, 0, False, "loop")),
+    "a32_bulk": (7, 33, 32, 8, 2, 4, dict(base=4, novel=1), 16, False, (0, 0, True, "loop")),
+    "smem_words_odd": (8, 29, 37, 5, 3, 3, dict(base=2, novel=1), None, False,
+                       (0, 0, False, "loop")),
+    "smem_bulk": (9, 29, 8, 8, 2, 3, dict(base=4, novel=1), 48, False, (0, 0, True, "loop")),
+    "fewer_objects_than_warps": (10, 3, 64, 16, 2, 8, dict(base=6, novel=1), 16, False,
+                                 (16, 2, True, "match")),
+    # register accumulator with more member rows than the one-match map takes
+    "regs16_m32_bulk": (20, 45, 64, 32, 2, 4, dict(base=8, novel=2), 16, False,
+                        (16, 2, True, "loop")),
+    "regs16_m32_words": (21, 45, 64, 32, 2, 4, dict(base=8, novel=2), 16, True,
+                         (16, 2, False, "loop")),
+}
+
+
+@pytest.mark.parametrize("case", list(K1_ROUTES.values()), ids=list(K1_ROUTES))
+def test_fold_aligned_routes_match_plain(dev, case):
+    seed, n, a, m, d, r, kw, u_cap, shifted, want_plan = case
+    st = _fleets(seed, n, a, m, d, r, dev, deferred_frac=0.5, **kw)
+    if shifted:
+        st = tuple(_shifted(x) for x in st)
+    u = 2 * m if u_cap is None else u_cap
+    plan = fa.fold_plan(st, d, u)
+    assert (plan["union_slots"], plan["actors_per_lane"], plan["bulk"], plan["align"]) == want_plan
+    for plunger in (True, False):
+        _equal(fa.fold_merge(*st, m, d, u_cap=u_cap, plunger=plunger, prebiased=True),
+               fa.fold_merge_reference(*st, m, d, u_cap=u_cap, plunger=plunger))
+
+
+def test_fold_aligned_ragged_view_matches_plain(dev):
+    """Replicas 1..R of an [R+1, N, ...] stack at a ragged N: every plane
+    but d_ids starts 16-byte aligned, d_ids only 8-byte aligned."""
+    st = _fleets(11, 4099, 64, 16, 2, 9, dev, base=6, novel=1, deferred_frac=0.5)
+    view = tuple(x[1:] for x in st)
+    assert view[3].data_ptr() % 16 == 8
+    assert fa.fold_plan(view, 2, 16)["bulk"]
+    _equal(fa.fold_merge(*view, 16, 2, u_cap=16, prebiased=True),
+           fa.fold_merge_reference(*view, 16, 2, u_cap=16))
+
+
+@pytest.mark.parametrize("m,r,base,novel", [(16, 8, 6, 1), (32, 4, 8, 2)], ids=["m16", "m32"])
+@pytest.mark.parametrize("shifted", [False, True], ids=["bulk", "words"])
+def test_fold_aligned_duplicate_ids_in_a_replica_match_plain(dev, m, r, base, novel, shifted):
+    """One replica holds an id in two rows (invalid state): the alignment
+    joins the rows by max, as the plain version's gather does — in the
+    stage the copy engine refills next, on both copy routes."""
+    st = [x.clone() for x in _fleets(19, 67, 64, m, 2, r, dev, base=base, novel=novel,
+                                      deferred_frac=0.5)]
+    st[1][3, ::2, 1] = st[1][3, ::2, 0]
+    if shifted:
+        st = [_shifted(x) for x in st]
+    assert fa.fold_plan(st, 2, 16) == {"union_slots": 16, "actors_per_lane": 2,
+                                       "bulk": not shifted, "align": "match" if m == 16 else "loop"}
+    _equal(fa.fold_merge(*st, m, 2, u_cap=16, prebiased=True),
+           fa.fold_merge_reference(*st, m, 2, u_cap=16))
+
+
+# id: (seed, n, a, m, d, m_cap, d_cap, shifted, expected plan)
+K2_ROUTES = {
+    "a64_bulk": (12, 67, 64, 16, 2, 16, 2, False, (2, "bulk", "match")),
+    "a64_words": (13, 67, 64, 16, 2, 16, 2, True, (2, "words", "match")),
+    "wide_m32": (14, 45, 64, 32, 2, 32, 2, False, (2, "bulk", "loop")),
+    "wide_m32_words": (24, 45, 64, 32, 2, 32, 2, True, (2, "words", "loop")),
+    "odd_words": (15, 29, 37, 5, 3, 5, 3, False, (0, "words", "match")),
+    "odd_words_m20": (25, 29, 37, 20, 3, 20, 3, False, (0, "words", "loop")),
+    "runtime_a_bulk": (16, 29, 8, 8, 2, 8, 2, False, (0, "bulk", "match")),
+    "runtime_a_bulk_m20": (26, 29, 36, 20, 2, 20, 2, False, (0, "bulk", "loop")),
+    "fewer_objects_than_warps": (17, 3, 64, 16, 2, 16, 2, False, (2, "bulk", "match")),
+    # two stages of A=256, M=64 exceed the card's shared memory per block
+    "wide_a_direct": (22, 67, 256, 64, 2, 64, 2, False, (0, "direct", "loop")),
+    "wide_a_direct_unaligned": (23, 29, 256, 64, 2, 64, 2, True, (0, "direct", "loop")),
+}
+
+
+@pytest.mark.parametrize("case", list(K2_ROUTES.values()), ids=list(K2_ROUTES))
+def test_merge_routes_match_plain(dev, case):
+    seed, n, a, m, d, m_cap, d_cap, shifted, want_plan = case
+    rng = np.random.RandomState(seed)
+    sa = _to(random_orswot_arrays(rng, n, a, m, d, max_counter=6, deferred_frac=0.6), dev)
+    sb = _to(random_orswot_arrays(rng, n, a, m, d, max_counter=6, deferred_frac=0.6), dev)
+    if shifted:
+        sa, sb = tuple(_shifted(x) for x in sa), tuple(_shifted(x) for x in sb)
+    plan = tile.merge_plan(sa, sb, m_cap)
+    assert (plan["actors_per_lane"], plan["route"], plan["align"]) == want_plan
+    _equal(tile.merge(*sa, *sb, m_cap, d_cap, prebiased=True),
+           tile.merge_reference(*sa, *sb, m_cap, d_cap))
+
+
+def test_merge_duplicate_live_ids_match_plain(dev):
+    """Two live slots of one side with one id (invalid state): the
+    kernel's slow path sums their ids + 1 and maxes their rows, as the
+    plain version's one-hot selection does."""
+    rng = np.random.RandomState(18)
+    a_np = random_orswot_arrays(rng, 37, 64, 16, 2, max_counter=6, min_live=4)
+    b_np = random_orswot_arrays(rng, 37, 64, 16, 2, max_counter=6, min_live=4)
+    ids = a_np[1].copy()
+    ids[::2, 1] = ids[::2, 0]
+    sa, sb = _to((a_np[0], ids) + a_np[2:], dev), _to(b_np, dev)
+    _equal(tile.merge(*sa, *sb, 16, 2, prebiased=True), tile.merge_reference(*sa, *sb, 16, 2))
+
+
 def test_wrapper_refuses_non_contiguous_planes(dev):
     st = _fleets(5, 8, 8, 6, 2, 2, dev, base=3, novel=1)
     every_other = [tuple(x[r][::2] for x in st) for r in range(2)]

@@ -44,11 +44,21 @@ def _interp(st, m_cap, d_cap, **kw):
     return jfa.fold_merge(*map(jnp.asarray, st), m_cap, d_cap, interpret=True, **kw)
 
 
-@pytest.mark.parametrize("deferred_frac", [0.0, 0.6], ids=["no_deferred", "deferred"])
-def test_fold_matches_interpret(deferred_frac):
-    st = _fleets(3, 11, 8, 6, 2, 3, base=3, novel=1, deferred_frac=deferred_frac)
-    want = _interp(st, 6, 2)
-    got = _unport(tfa.fold_merge(*_port(st), 6, 2, prebiased=True))
+# (seed, n, a, m, d, r, base, novel, deferred_frac, u_cap): the odd widths
+# and u_cap=32 are the shapes chip_smoke.py holds the kernel's shared-memory
+# instantiation and per-lane cp.async route against this plain version at
+@pytest.mark.parametrize("case", [
+    (3, 11, 8, 6, 2, 3, 3, 1, 0.0, None),
+    (3, 11, 8, 6, 2, 3, 3, 1, 0.6, None),
+    (21, 37, 13, 5, 3, 3, 2, 1, 0.6, None),
+    (22, 5, 8, 16, 2, 4, 8, 2, 0.5, 32),
+], ids=["no_deferred", "deferred", "odd_widths", "u_cap_32"])
+def test_fold_matches_interpret(case):
+    seed, n, a, m, d, r, base, novel, deferred_frac, u_cap = case
+    st = _fleets(seed, n, a, m, d, r, base=base, novel=novel, deferred_frac=deferred_frac)
+    kw = {} if u_cap is None else {"u_cap": u_cap}
+    want = _interp(st, m, d, **kw)
+    got = _unport(tfa.fold_merge(*_port(st), m, d, prebiased=True, **kw))
     _assert_same(want, got)
 
 

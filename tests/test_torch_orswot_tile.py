@@ -62,7 +62,12 @@ def _pair(seed, n, a, m, d, full_range=False, **kw):
     (2, 7, 4, 5, 2, 3, 1, {"max_counter": 3, "deferred_frac": 0.7}),  # overflow
     (3, 17, 8, 6, 2, 6, 2, {"max_counter": 5, "deferred_frac": 0.5, "full_range": True}),
     (4, 11, 33, 4, 2, 4, 2, {"max_counter": 9}),  # A not a multiple of 32
-], ids=["deferred", "dense_deferred", "overflow", "full_range", "odd_actors"])
+    (14, 37, 13, 5, 3, 5, 3, {"max_counter": 5, "deferred_frac": 0.6}),
+    (15, 23, 8, 32, 2, 32, 2, {"max_counter": 5, "deferred_frac": 0.5, "min_live": 12}),
+    # stages too wide for the card's shared memory: the kernel's direct route
+    (16, 5, 256, 64, 2, 64, 2, {"max_counter": 5, "deferred_frac": 0.5, "min_live": 24}),
+], ids=["deferred", "dense_deferred", "overflow", "full_range", "odd_actors", "odd_widths",
+        "m_32", "wide_actors"])
 def test_merge_reference_matches_unrolled(case):
     seed, n, a, m, d, m_cap, d_cap, kw = case
     a_np, b_np = _pair(seed, n, a, m, d, **kw)
