@@ -10,15 +10,15 @@ Phases, in order; any failure ends the run with a nonzero exit:
 3. kernels — each kernel against its plain PyTorch version on the card
    (bit for bit, overflow flags included) on seeded inputs: the
    north-star shapes, a ragged object count, full-range u32 counters,
-   forced member/union overflow, and the prebiased round trip; K1 and K2
-   in every instantiation and by both copy routes (odd widths, u_cap=32,
-   M=32 at u_cap=16, three objects, ragged-N views, unaligned planes,
-   duplicate ids) through each alignment path (one match or the loop),
-   and K2's direct route for stages too wide for shared memory (A=256,
-   M=64);
-   then, at
-   the main path's own shapes, each kernel against its plain version
-   again and their times beside the kernel's bound;
+   forced member/union overflow, and the prebiased round trip; K1, K2
+   and K3 in every instantiation and by both copy routes (odd widths,
+   u_cap=32, M=32 at u_cap=16, three objects, ragged-N views, unaligned
+   planes, duplicate ids; K3 also M=8 into m_cap=16, R=1 and forced
+   overflow, with the plunger on and off) through each alignment path
+   (one match or the loop), and K2's and K3's direct routes for widths
+   too wide for shared memory (A=256, M=64); then, at the main path's
+   own shapes, each kernel against its plain version again, K3's peak
+   device memory per call, and their times beside the kernel's bound;
 4. main path — the north-star anti-entropy fold (A=64, M=16, D=2, R=8,
    1.25M objects in 62,500-object chunks) built on the device from
    seeded columns and folded with ``orswot_ops.fold_merge(impl="pallas")``
@@ -260,14 +260,16 @@ def check_kernels(dev):
 
 
 def check_routes(dev, rng, cmp):
-    """K1 and K2 in every instantiation (accumulator in registers or in
-    shared memory; actor width at compile or run time) and by both copy
-    routes (bulk copies, per-lane cp.async), bit for bit against their
+    """K1, K2 and K3 in every instantiation (accumulator in registers or
+    in shared memory; actor width at compile or run time), by every copy
+    route (bulk copies, per-lane cp.async; K2 and K3 also the direct route
+    for widths too wide for shared memory) and through each alignment
+    path, K1 and K3 with the plunger on and off, bit for bit against their
     plain versions; raises unless every combination was taken."""
     from crdt_tpu_torch.ops import orswot_fold_aligned as fa, orswot_tile as tile
     from crdt_tpu_torch.utils.testdata import anti_entropy_fleets, random_orswot_arrays
 
-    seen = {"orswot_fold_aligned": set(), "orswot_merge": set()}
+    seen = {"orswot_fold_aligned": set(), "orswot_merge": set(), "orswot_fold": set()}
 
     def fleets(n, a, m, d, r, base, novel):
         return to_dev(stack_np(anti_entropy_fleets(rng, n, a, m, d, r, base=base, novel=novel,
@@ -280,6 +282,21 @@ def check_routes(dev, rng, cmp):
             got = fa.fold_merge(*st, m, d, u_cap=u_cap, plunger=plunger, prebiased=True)
             want = fa.fold_merge_reference(*st, m, d, u_cap=u_cap, plunger=plunger)
             cmp("orswot_fold_aligned", got, want, f"{what} {plan}")
+
+    def fold3(st, m_cap, d_cap, what):
+        plan = tile.fold_merge_plan(st, m_cap, d_cap)
+        flags = 0
+        for plunger in (True, False):
+            if st[0].shape[0] == 1 and not plunger and (st[1].shape[-1], st[3].shape[-1]) != (
+                    m_cap, d_cap):
+                continue  # a one-replica fold without plunger keeps the input capacities
+            seen["orswot_fold"].add((plan["actors_per_lane"] > 0, plan["route"], plan["align"],
+                                     plunger))
+            got = tile.fold_merge(*st, m_cap, d_cap, plunger=plunger, prebiased=True)
+            want = tile.fold_merge_reference(*st, m_cap, d_cap, plunger=plunger)
+            cmp("orswot_fold", got, want, f"{what} plunger={plunger} {plan}")
+            flags = max(flags, int(got[5].any(0).sum()))
+        return flags
 
     def merge(sa, sb, m_cap, d_cap, what):
         plan = tile.merge_plan(sa, sb, m_cap)
@@ -316,6 +333,31 @@ def check_routes(dev, rng, cmp):
         fold(tuple(shifted(x) for x in dup), m, D, U_CAP,
              "duplicate ids in a replica" + what + ", unaligned")
 
+    # K3 (sequential fold): staged by bulk copies or per-lane cp.async, or
+    # direct; compile-time or run-time A; one match or the loops
+    fold3(ns, M, D, "north-star fleets")
+    fold3(tuple(shifted(x) for x in ns), M, D, "north-star fleets, unaligned")
+    fold3(view, M, D, "ragged-N view")
+    fold3(tuple(x[:, :3].contiguous() for x in ns), M, D, "n=3")
+    fold3(odd, 5, 3, "A=37 M=5 D=3")
+    fold3(fleets(CHECK_N, A, 8, D, 3, 4, 1), 16, 3, "M=8 into m_cap=16 d_cap=3")
+    fold3(tuple(x[:1].contiguous() for x in ns), M, D, "R=1")
+    dup = [x.clone() for x in ns]
+    dup[1][3, ::2, 1] = dup[1][3, ::2, 0]
+    fold3(tuple(dup), M, D, "duplicate ids in a replica")
+    fold3(tuple(shifted(x) for x in dup), M, D, "duplicate ids in a replica, unaligned")
+    randoms = to_dev(stack_np([random_orswot_arrays(rng, CHECK_N, A, M, D, max_counter=6,
+                                                    deferred_frac=0.6) for _ in range(3)]), dev)
+    if fold3(randoms, 4, 1, "forced overflow m_cap=4 d_cap=1") < 2:
+        raise AssertionError("K3: forced member and deferred overflow not both flagged")
+    fold3(wide, 32, D, "M=32 m_cap=32")
+    fold3(tuple(shifted(x) for x in wide), 32, D, "M=32 m_cap=32, unaligned")
+    fold3(fleets(CHECK_N + 3, 36, 8, 2, 3, 4, 1), 8, 2, "A=36 M=8 D=2")
+    fold3(fleets(CHECK_N + 3, 37, 20, 3, 3, 8, 2), 20, 3, "A=37 M=20 D=3")
+    fold3(fleets(CHECK_N + 3, 36, 20, 2, 3, 8, 2), 20, 2, "A=36 M=20 D=2")
+    # footprint too wide for shared memory: the direct route
+    fold3(fleets(67, 256, 64, D, 3, 24, 4), 64, D, "A=256 M=64 m_cap=64")
+
     sa, sb = pair(CHECK_N, A, M, D)
     merge(sa, sb, M, D, "north-star pair")
     merge(tuple(shifted(x) for x in sa), tuple(shifted(x) for x in sb), M, D,
@@ -349,14 +391,69 @@ def check_routes(dev, rng, cmp):
         "orswot_merge": {(apl, route, align) for apl in (True, False)
                          for route in ("bulk", "words") for align in ("match", "loop")}
         | {(False, "direct", "loop")},
+        "orswot_fold": {(apl, route, align, plunger) for apl in (True, False)
+                        for route in ("bulk", "words") for align in ("match", "loop")
+                        for plunger in (True, False)}
+        | {(False, "direct", "loop", plunger) for plunger in (True, False)},
     }
     for name, got in seen.items():
         if got != want[name]:
             raise AssertionError(f"{name}: instantiation x route combinations taken {got}")
-    log("  K1 and K2: every instantiation by both copy routes and both alignment paths "
+    log("  K1, K2 and K3: every instantiation by both copy routes and both alignment paths "
         "bit-equal to the plain versions (A=37 M=5 D=3, u_cap=32, M=32 u_cap=16, n=3, "
-        "ragged-N views, unaligned copies, duplicate ids, duplicate live ids), K2's direct "
-        "route at A=256 M=64")
+        "ragged-N views, unaligned copies, duplicate ids, duplicate live ids; K3 also M=8 "
+        "into m_cap=16, R=1 and forced overflow, plunger on and off), K2's and K3's direct "
+        "routes at A=256 M=64")
+
+
+# Integer operations per actor column of one staged merge
+# (csrc/orswot_merge_body.cuh), counted from its per-slot instruction
+# stream, where the set clocks and the slot's row and aligned dot sit in
+# registers (loads, stores, shuffles and votes are not counted).  An
+# a-slot: the keep1/p2 pass (two compares, two ORs), then the closed-form
+# rule (the select of oc, the e1 == e2 compare and select, two sub1 of a
+# compare and a select each, one max) and the liveness compare and OR:
+# 14.  A b-only slot: one sub1 and the liveness compare and OR, 4.  The
+# clock join: one max.  Each valid deferred row's still-ahead test: a
+# max, a compare and an AND, 3.
+K3_OPS = {"a_slot": 14, "b_only": 4, "clock": 1, "d_row": 3}
+
+
+def k3_ops(st, m_cap: int, d_cap: int, plunger: bool = True) -> int:
+    """The integer operations K3 does on these biased ``[R, N, ...]``
+    planes: for each merge of the sequential fold (the accumulator
+    against replica r, then the plunger), ``K3_OPS`` times the valid
+    a-slots, b-only slots, objects and deferred rows this data gives that
+    step, over the actor columns; the steps' accumulators come from the
+    plain fold."""
+    import torch
+
+    from crdt_tpu_torch.dtypes import EMPTY
+    from crdt_tpu_torch.ops import orswot_tile as tile
+
+    a = st[0].shape[-1]
+    n = st[0].shape[1]
+
+    def step_ops(sa, sb):
+        va, vb = sa[1] != EMPTY, sb[1] != EMPTY
+        matched = (vb[..., :, None] & va[..., None, :]
+                   & (sb[1][..., :, None] == sa[1][..., None, :])).any(-1)
+        d_rows = int((sa[3] != EMPTY).sum()) + int((sb[3] != EMPTY).sum())
+        per_col = (K3_OPS["a_slot"] * int(va.sum()) + K3_OPS["b_only"] * int((vb & ~matched).sum())
+                   + K3_OPS["clock"] * n + K3_OPS["d_row"] * d_rows)
+        return a * per_col
+
+    acc = tuple(x[0] for x in st)
+    ops = 0
+    for r in range(1, st[0].shape[0]):
+        rep = tuple(x[r] for x in st)
+        ops += step_ops(acc, rep)
+        acc, _ = tile._merge_tile(acc, rep, m_cap, d_cap)
+    if plunger:
+        ops += step_ops(acc, acc)
+    del acc
+    torch.cuda.empty_cache()
+    return ops
 
 
 def time_kernels(dev, planes, worst):
@@ -387,7 +484,7 @@ def time_kernels(dev, planes, worst):
         "orswot_fold": (
             lambda: tile.fold_merge(*st, M, D, prebiased=True),
             lambda: tile.fold_merge_reference(*st, M, D),
-            nbytes(st), n * R * s_ab * A * 12,
+            nbytes(st), k3_ops(st, M, D),
         ),
         "orswot_merge": (
             lambda: tile.merge(*pair[0], *pair[1], M, D, prebiased=True),
@@ -412,6 +509,18 @@ def time_kernels(dev, planes, worst):
         log(f"  {name}: bit-equal to its plain version on {what}")
     del level
     torch.cuda.empty_cache()
+    # K3's device memory per call above its inputs: the outputs only, where
+    # the first design also allocated its accumulator scratch (2 states
+    # per object)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = specs["orswot_fold"][0]()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del got
+    log(f"  orswot_fold: peak device memory per call {peak / 1e6:.1f} MB above its inputs "
+        f"(its outputs: {out_state / 1e6:.1f} MB)")
     for name, (kernel, plain, in_bytes, ops) in specs.items():
         ms = cuda_ms(kernel, 10)
         plain_ms = cuda_ms(plain, 2)
@@ -419,7 +528,7 @@ def time_kernels(dev, planes, worst):
         b_ms, by = bound_ms(in_bytes, out_state, ops)
         rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by}
         log(f"  {name}: {ms:.4f} ms kernel, {plain_ms:.3f} ms plain, bound {b_ms:.4f} ms "
-            f"({by}; {in_bytes + out_state} B)")
+            f"({by}; {in_bytes + out_state} B, {ops:.4g} integer operations)")
     return rows
 
 

@@ -42,6 +42,7 @@ KERNELS = {
     "orswot_fold": ("orswot_fold.cu", {
         "orswot_fold_launch": [P] * 12 + [I, LL] + [I] * 6 + [P],
         "orswot_fold_acc_ints": [I, I, I],
+        "orswot_fold_plan": [P] * 4 + [I] * 5,
     }),
     "orswot_fold_aligned": ("orswot_fold_aligned.cu", {
         "orswot_fold_aligned_launch": [P] * 11 + [I, LL] + [I] * 7 + [P],

@@ -516,7 +516,7 @@ __global__ void __launch_bounds__(32 * MAX_WARPS, MIN_BLOCKS) orswot_fold_aligne
         auto rows = [&](int k) { return k < acc_d ? s_drows + k * A : o_rows + (k - acc_d) * A; };
         for (int k = lane; k < dn; k += 32) s_cat[k] = k < acc_d ? s_dids[k] : o_ids[k - acc_d];
         __syncwarp();
-        orswot::dedup_rows(s_cat, s_dlive, dn, A, lane, rows);
+        orswot::dedup_rows<0>(s_cat, s_dlive, dn, A, lane, rows);
         PHASE_MARK(SELF ? P_PLUNGER : P_DEDUP);
 
         // replay: subtract the join of the live rows citing each member;

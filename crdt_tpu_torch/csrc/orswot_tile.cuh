@@ -1,4 +1,10 @@
-// Per-object ORSWOT device functions shared by the three kernels.
+// Per-object ORSWOT device functions: the vocabulary of all three
+// kernels (views, votes, the biased-counter operations, the loops over a
+// lane's actor columns, the deferred-table dedup, rank and pack), and
+// merge_object — the first design's merge straight from device memory,
+// which only the direct routes of K2 and K3 still take (widths whose
+// stages exceed shared memory).  The staged merge is in
+// orswot_merge_body.cuh.
 //
 // One warp owns one object.  The actor axis (A) is strided over the 32
 // lanes: lane l owns actors l, l+32, l+64, ...  Reductions over actors
@@ -73,23 +79,9 @@ __device__ __forceinline__ int dot_rule(int e1, int e2, int sc, int oc,
   return sub1(e2, sc);
 }
 
-// Ask L2 for `bytes` of device memory at `p`, one 128-byte line per lane
-// per step, without waiting: the rows a warp is about to walk one slot at
-// a time then arrive from L2 instead of each paying a device-memory trip.
-__device__ __forceinline__ void prefetch_l2(const void* p, long long bytes, int lane) {
-  const char* c = static_cast<const char*>(p);
-  for (long long off = (long long)lane * 128; off < bytes; off += 32 * 128)
-    asm volatile("prefetch.global.L2 [%0];" ::"l"(c + off));
-}
-
-__device__ __forceinline__ void prefetch_state(const StateView& s, int A, int lane) {
-  prefetch_l2(s.dots, (long long)s.M * A * sizeof(int), lane);
-  prefetch_l2(s.d_clocks, (long long)s.D * A * sizeof(int), lane);
-}
-
 // Scratch ints one warp needs for merge_object with these table sizes.
 __host__ __device__ inline int merge_scratch_ints(int Ma, int Mb, int Da, int Db, int A) {
-  return 5 * (Ma + Mb) + 4 * (Da + Db) + 2 * A;
+  return 5 * (Ma + Mb) + 3 * (Da + Db) + 2 * A;
 }
 
 
@@ -100,11 +92,36 @@ __device__ __forceinline__ const int* drow(const StateView& a, const StateView& 
                  : b.d_clocks + (long long)(k - a.D) * A;
 }
 
+// f(x) for this lane's actor columns x = lane + 32 j < A: APL columns per
+// lane at compile time, or a loop over run-time A (APL = 0).
+template <int APL, typename F>
+__device__ __forceinline__ void each_col(int A, int lane, F&& f) {
+  if constexpr (APL > 0) {
+#pragma unroll
+    for (int j = 0; j < APL; ++j) f(lane + 32 * j);
+  } else {
+    for (int x = lane; x < A; x += 32) f(x);
+  }
+}
+
+// f(j, x) for the same columns, with j the column's index in this lane
+// (always 0 at run-time A).
+template <int APL, typename F>
+__device__ __forceinline__ void each_jx(int A, int lane, F&& f) {
+  if constexpr (APL > 0) {
+#pragma unroll
+    for (int j = 0; j < APL; ++j) f(j, lane + 32 * j);
+  } else {
+    for (int x = lane; x < A; x += 32) f(0, x);
+  }
+}
+
 // Dedup the concatenated deferred ids (keep first of equal (id, clock)
-// rows): writes d_live[k] for k < dn.  `rows(k)` returns row k.
-template <typename RowFn>
-__device__ void dedup_rows(const int* did, int* d_live, int dn, int A, int lane,
-                           RowFn rows) {
+// rows, `orswot.rs:141-148`): writes d_live[k] for k < dn.  `rows(k)`
+// returns row k.
+template <int APL, typename RowFn>
+__device__ __forceinline__ void dedup_rows(const int* did, int* d_live, int dn, int A, int lane,
+                                           RowFn rows) {
   for (int k = 0; k < dn; ++k) {
     const int id = did[k];
     bool dup = false;
@@ -114,7 +131,7 @@ __device__ void dedup_rows(const int* did, int* d_live, int dn, int A, int lane,
         if (did[i] != id) continue;
         const int* ri = rows(i);
         bool eq = true;
-        for (int x = lane; x < A; x += 32) eq &= (ri[x] == rk[x]);
+        each_col<APL>(A, lane, [&](int x) { eq &= ri[x] == rk[x]; });
         dup = warp_all(eq);
       }
     }
@@ -136,26 +153,29 @@ __device__ __forceinline__ int slot_ranks(const int* flags, int* rank, int n, in
   return run;
 }
 
-// Write the rows selected by slot order into `d_cap` output rows: row k
-// of the output takes the flagged source row whose rank is k (ranks are
-// distinct among flagged rows, so at most one).
-template <typename RowFn>
-__device__ void pack_rows(const int* flags, const int* rank, const int* src_ids,
-                          int n, int* out_ids, int* out_rows, int d_cap, int A,
-                          int lane, RowFn rows) {
-  for (int k = 0; k < d_cap; ++k) {
-    int src = -1;
-    for (int j = 0; j < n; ++j)
-      if (flags[j] && rank[j] == k) src = j;
-    if (lane == 0) out_ids[k] = src >= 0 ? src_ids[src] : EMPTY;
-    int* orow = out_rows + (long long)k * A;
-    if (src >= 0) {
-      const int* r = rows(src);
-      for (int x = lane; x < A; x += 32) orow[x] = r[x];
-    } else {
-      for (int x = lane; x < A; x += 32) orow[x] = ZERO;
-    }
+// The flagged rows, in slot order, into d_cap output rows (the rest
+// empty); returns the flagged count.
+template <int APL, typename RowFn>
+__device__ __forceinline__ int pack_rows(const int* flags, const int* src_ids, int n,
+                                         int* out_ids, int* out_rows, int d_cap, int A, int lane,
+                                         RowFn rows) {
+  int taken = 0;
+  for (int k = 0; k < n && taken < d_cap; ++k) {
+    if (!flags[k]) continue;
+    if (lane == 0) out_ids[taken] = src_ids[k];
+    const int* r = rows(k);
+    int* o = out_rows + (long long)taken * A;
+    each_col<APL>(A, lane, [&](int x) { o[x] = r[x]; });
+    ++taken;
   }
+  for (int k = taken; k < d_cap; ++k) {
+    if (lane == 0) out_ids[k] = EMPTY;
+    int* o = out_rows + (long long)k * A;
+    each_col<APL>(A, lane, [&](int x) { o[x] = ZERO; });
+  }
+  int count = 0;
+  for (int k = 0; k < n; ++k) count += flags[k];
+  return count;
 }
 
 // Pairwise merge of one object: `_merge_tile` of orswot_pallas.py.
@@ -176,12 +196,8 @@ __device__ int merge_object(const StateView a, const StateView b, const OutView 
   int* s_did = s_rank + S;    // [dn] deferred ids, a's rows then b's
   int* s_dlive = s_did + dn;  // [dn] valid and not a duplicate
   int* s_ahead = s_dlive + dn;  // [dn] still ahead of the joined clock
-  int* s_drank = s_ahead + dn;  // [dn] rank among ahead rows
-  int* s_ca = s_drank + dn;     // [A]  a's clock, each lane its own columns
+  int* s_ca = s_ahead + dn;     // [A]  a's clock, each lane its own columns
   int* s_cb = s_ca + A;         // [A]  b's clock
-
-  prefetch_state(a, A, lane);
-  prefetch_state(b, A, lane);
 
   // --- member alignment: a's slots, then b's slots no a-slot matched ---
   for (int s = lane; s < Ma; s += 32) s_id[s] = a.ids[s];
@@ -205,7 +221,7 @@ __device__ int merge_object(const StateView a, const StateView b, const OutView 
 
   // --- deferred union + dedup, keep first (`orswot.rs:141-148`) ---
   auto rows = [&](int k) { return drow(a, b, k, A); };
-  dedup_rows(s_did, s_dlive, dn, A, lane, rows);
+  dedup_rows<0>(s_did, s_dlive, dn, A, lane, rows);
 
   // --- clock join (`orswot.rs:153`); rows still ahead of it ---
   for (int x = lane; x < A; x += 32) {
@@ -321,8 +337,7 @@ __device__ int merge_object(const StateView a, const StateView b, const OutView 
   }
 
   // --- deferred rows still ahead, first-occurrence order, into d_cap ---
-  const int n_ahead = slot_ranks(s_ahead, s_drank, dn, lane);
-  pack_rows(s_ahead, s_drank, s_did, dn, o.d_ids, o.d_clocks, d_cap, A, lane, rows);
+  const int n_ahead = pack_rows<0>(s_ahead, s_did, dn, o.d_ids, o.d_clocks, d_cap, A, lane, rows);
   __syncwarp();
   return (n_live > m_cap ? 1 : 0) | (n_ahead > d_cap ? 2 : 0);
 }

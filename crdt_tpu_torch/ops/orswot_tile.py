@@ -345,11 +345,32 @@ def merge_plan(sa, sb, m_cap: int) -> dict:
     code = lib.orswot_merge_plan(*(t.data_ptr() for i, t in enumerate(sa) if i != 3),
                                  *(t.data_ptr() for i, t in enumerate(sb) if i != 3),
                                  a, ma, mb, da, db, m_cap)
+    return _decode_plan(lib, "orswot_merge_plan", code)
+
+
+def _decode_plan(lib, fn: str, code: int) -> dict:
+    """A plan code of the merge and fold launchers: 100 * one match + 10 *
+    actors per lane + route, or minus a CUDA error."""
     if code < 0:
-        raise KernelError(f"orswot_merge_plan: CUDA error {-code} "
+        raise KernelError(f"{fn}: CUDA error {-code} "
                           f"({lib.orswot_error_string(-code).decode(errors='replace')})")
     return {"actors_per_lane": code % 100 // 10, "route": _MERGE_ROUTES[code % 10],
             "align": "match" if code // 100 else "loop"}
+
+
+def fold_merge_plan(st, m_cap: int, d_cap: int) -> dict:
+    """The instantiation, route and alignment path ``csrc/orswot_fold.cu``
+    takes for these biased ``[R, N, ...]`` CUDA planes: ``{"actors_per_lane":
+    2 or 0 (run-time A), "route": "bulk" | "words" (replicas staged by bulk
+    copies or per-lane cp.async, the accumulator in shared memory) |
+    "direct" (too wide for shared memory: merged from device memory, the
+    accumulator in a device-memory scratch), "align": "match" (one
+    __match_any_sync per fold step) | "loop"}``."""
+    a, m, d = st[0].shape[-1], st[1].shape[-1], st[3].shape[-1]
+    lib = _build.library("orswot_fold")
+    code = lib.orswot_fold_plan(st[0].data_ptr(), st[1].data_ptr(), st[2].data_ptr(),
+                                st[4].data_ptr(), a, m, d, m_cap, d_cap)
+    return _decode_plan(lib, "orswot_fold_plan", code)
 
 
 def fold_merge(clock, ids, dots, dids, dclocks, m_cap: int, d_cap: int,
@@ -370,12 +391,14 @@ def fold_merge(clock, ids, dots, dids, dclocks, m_cap: int, d_cap: int,
     if r == 1 and not plunger and (m, d) != (m_cap, d_cap):
         raise ValueError("a one-replica fold without plunger keeps the input capacities")
     out = _empty_out(n, a, m_cap, d_cap, st[0].device)
-    lib = _build.library("orswot_fold")
-    acc = torch.empty((max(n, 1), lib.orswot_fold_acc_ints(a, m_cap, d_cap)),
-                      dtype=torch.int32, device=st[0].device)
+    acc = None  # the direct route's accumulator scratch; the staged routes keep it on chip
+    if n and fold_merge_plan(st, m_cap, d_cap)["route"] == "direct":
+        lib = _build.library("orswot_fold")
+        acc = torch.empty((n, lib.orswot_fold_acc_ints(a, m_cap, d_cap)),
+                          dtype=torch.int32, device=st[0].device)
     _build.launch(
         "orswot_fold", "orswot_fold_launch",
-        *_ptrs(st), *_ptrs(out), acc.data_ptr(),
+        *_ptrs(st), *_ptrs(out), None if acc is None else acc.data_ptr(),
         r, n, a, m, d, m_cap, d_cap, int(plunger),
         torch.cuda.current_stream(st[0].device).cuda_stream,
     )

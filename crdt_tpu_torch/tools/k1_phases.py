@@ -56,8 +56,14 @@ def _ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def measure(name: str, phases, launch_stamped, package_call, label: str, argv=None) -> int:
+    """Build kernel library ``name`` plain and with ``STAMPS``, fold the
+    north-star chunk through both (``package_call(st)`` through the
+    package, ``launch_stamped(lib, st, out, n, stream)`` through the
+    stamped library's launcher), require them bit-equal, time both, and
+    print each phase's share of the stamped cycles (``phases`` in the
+    order of the library's ``<name>_phase_cycles`` totals)."""
+    ap = argparse.ArgumentParser(description=label)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--chunk", type=int, default=62_500)
     ap.add_argument("--seed", type=int, default=3)
@@ -66,27 +72,27 @@ def main(argv=None) -> int:
     import torch
 
     if not torch.cuda.is_available():
-        print("k1_phases: needs a CUDA card", file=sys.stderr)
+        print(f"{name}: needs a CUDA card", file=sys.stderr)
         return 2
     from crdt_tpu_torch import _build
-    from crdt_tpu_torch.ops import orswot_fold_aligned as fa
-    from crdt_tpu_torch.ops.orswot_tile import _empty_out, _ptrs
+    from crdt_tpu_torch.ops.orswot_tile import _empty_out
     from crdt_tpu_torch.utils.testdata import build_fleet_planes, fleet_columns
 
     dev = torch.device("cuda", 0)
-    _build.build_all(["orswot_fold_aligned"])
-    _build.build_all(["orswot_fold_aligned"], STAMPS)
+    _build.build_all([name])
+    _build.build_all([name], STAMPS)
     for key, info in _build.BUILD_LOG.items():
         for line in info["ptxas"].splitlines():
             if "registers" in line or "spill" in line or "stack frame" in line:
                 print(f"ptxas[{key}]: {line.strip()}")
-    lib = _build.library("orswot_fold_aligned", STAMPS)
-    lib.orswot_fold_aligned_phase_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    lib.orswot_fold_aligned_phase_cycles.restype = ctypes.c_int
-    cycles = (ctypes.c_ulonglong * len(PHASES))()
+    lib = _build.library(name, STAMPS)
+    read_cycles = getattr(lib, f"{name}_phase_cycles")
+    read_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    read_cycles.restype = ctypes.c_int
+    cycles = (ctypes.c_ulonglong * len(phases))()
 
     def read(reset: bool) -> list[int]:
-        rc = lib.orswot_fold_aligned_phase_cycles(ctypes.addressof(cycles), int(reset))
+        rc = read_cycles(ctypes.addressof(cycles), int(reset))
         if rc != 0:
             raise RuntimeError(f"reading the phase clocks failed: CUDA error {rc}")
         return list(cycles)
@@ -99,22 +105,18 @@ def main(argv=None) -> int:
     out = _empty_out(n, A, M, D, dev)
 
     def stamped():
-        rc = lib.orswot_fold_aligned_launch(*_ptrs(st), *_ptrs(out), R, n, A, M, D, M, D,
-                                            U_CAP, 1, stream)
+        rc = launch_stamped(lib, st, out, n, stream)
         if rc != 0:
             raise RuntimeError(f"stamped launch failed: CUDA error {rc}")
 
-    def plain_build():
-        return fa.fold_merge(*st, M, D, u_cap=U_CAP, prebiased=True)
-
-    want = plain_build()
+    want = package_call(st)
     stamped()
     torch.cuda.synchronize()
     got = out[:5] + (out[5].bool(),)
-    for name, g, w in zip(("clock", "ids", "dots", "d_ids", "d_clocks", "overflow"), got, want):
+    for plane, g, w in zip(("clock", "ids", "dots", "d_ids", "d_clocks", "overflow"), got, want):
         if not torch.equal(g, w):
-            raise AssertionError(f"stamped build disagrees with the package build on {name}")
-    ms_plain = _ms(plain_build, args.iters)
+            raise AssertionError(f"stamped build disagrees with the package build on {plane}")
+    ms_plain = _ms(lambda: package_call(st), args.iters)
     ms_stamped = _ms(stamped, args.iters)
     read(reset=True)
     for _ in range(args.iters):
@@ -123,19 +125,32 @@ def main(argv=None) -> int:
     totals = read(reset=False)
     whole = sum(totals) or 1
     card = _card()
-    print(f"card: {card}; K1 at [{R}, {n}, ...] A={A} M={M} D={D} u_cap={U_CAP}: "
+    print(f"card: {card}; {label} at [{R}, {n}, ...] A={A} M={M} D={D}: "
           f"{ms_plain:.4f} ms unstamped, {ms_stamped:.4f} ms stamped "
           f"(mean of {args.iters}); stamped build bit-equal")
     per_obj = whole / (args.iters * n)
-    for name, c in zip(PHASES, totals):
-        print(f"  {name:8s} {100.0 * c / whole:6.2f} %  {c / (args.iters * n):10.0f} cycles/object")
+    for phase, c in zip(phases, totals):
+        print(f"  {phase:8s} {100.0 * c / whole:6.2f} %  {c / (args.iters * n):10.0f} cycles/object")
     print(f"  {'total':8s} 100.00 %  {per_obj:10.0f} cycles/object (per warp, summed over warps)")
     print(json.dumps({
         "card": card, "n": n, "iters": args.iters, "ms_unstamped": ms_plain,
         "ms_stamped": ms_stamped, "cycles_per_object": per_obj,
-        "share": {name: c / whole for name, c in zip(PHASES, totals)},
+        "share": {phase: c / whole for phase, c in zip(phases, totals)},
     }))
     return 0
+
+
+def main(argv=None) -> int:
+    from crdt_tpu_torch.ops import orswot_fold_aligned as fa
+    from crdt_tpu_torch.ops.orswot_tile import _ptrs
+
+    def launch_stamped(lib, st, out, n, stream):
+        return lib.orswot_fold_aligned_launch(*_ptrs(st), *_ptrs(out), R, n, A, M, D, M, D,
+                                              U_CAP, 1, stream)
+
+    return measure("orswot_fold_aligned", PHASES, launch_stamped,
+                   lambda st: fa.fold_merge(*st, M, D, u_cap=U_CAP, prebiased=True),
+                   f"K1 u_cap={U_CAP}", argv)
 
 
 if __name__ == "__main__":

@@ -189,6 +189,74 @@ def test_merge_duplicate_live_ids_match_plain(dev):
     _equal(tile.merge(*sa, *sb, 16, 2, prebiased=True), tile.merge_reference(*sa, *sb, 16, 2))
 
 
+# id: (seed, n, a, m, d, r, fleet kwargs, m_cap, d_cap, view, expected plan);
+# view: "shifted" (every plane 4 bytes past a 16-byte boundary), "ragged"
+# (replicas 1..R of an [R+1, N, ...] stack: d_ids only 8-byte aligned),
+# "dup" (a replica holding one id in two rows), or None; no fleet kwargs:
+# R independent random states (several deferred rows ahead per object)
+K3_ROUTES = {
+    "north_star_bulk": (30, 67, 64, 16, 2, 8, dict(base=6, novel=1), 16, 2, None,
+                        (2, "bulk", "match")),
+    "north_star_words": (31, 67, 64, 16, 2, 8, dict(base=6, novel=1), 16, 2, "shifted",
+                         (2, "words", "match")),
+    "ragged_view": (32, 4099, 64, 16, 2, 8, dict(base=6, novel=1), 16, 2, "ragged",
+                    (2, "bulk", "match")),
+    "n3": (33, 3, 64, 16, 2, 8, dict(base=6, novel=1), 16, 2, None, (2, "bulk", "match")),
+    "odd_words": (34, 29, 37, 5, 3, 3, dict(base=2, novel=1), 5, 3, None,
+                  (0, "words", "match")),
+    "m8_into_m16": (35, 45, 64, 8, 2, 3, dict(base=4, novel=1), 16, 3, None,
+                    (2, "bulk", "match")),
+    "r1": (36, 45, 64, 16, 2, 1, dict(base=6, novel=1), 16, 2, None, (2, "bulk", "match")),
+    "dup_ids_bulk": (37, 67, 64, 16, 2, 8, dict(base=6, novel=1), 16, 2, "dup",
+                     (2, "bulk", "match")),
+    "overflow": (38, 67, 64, 16, 2, 3, None, 4, 1, None, (2, "bulk", "match")),
+    "wide_m32_bulk": (39, 45, 64, 32, 2, 4, dict(base=20, novel=3), 32, 2, None,
+                      (2, "bulk", "loop")),
+    "wide_m32_words": (40, 45, 64, 32, 2, 4, dict(base=20, novel=3), 32, 2, "shifted",
+                       (2, "words", "loop")),
+    "runtime_a_bulk": (41, 29, 36, 8, 2, 3, dict(base=4, novel=1), 8, 2, None,
+                       (0, "bulk", "match")),
+    "runtime_a_words_m20": (42, 29, 37, 20, 3, 3, dict(base=8, novel=2), 20, 3, None,
+                            (0, "words", "loop")),
+    "runtime_a_bulk_m20": (43, 29, 36, 20, 2, 3, dict(base=8, novel=2), 20, 2, None,
+                           (0, "bulk", "loop")),
+    # the footprint of A=256, M=64 exceeds the card's shared memory per block
+    "wide_a_direct": (44, 67, 256, 64, 2, 3, dict(base=24, novel=4), 64, 2, None,
+                      (0, "direct", "loop")),
+}
+
+
+@pytest.mark.parametrize("case", list(K3_ROUTES.values()), ids=list(K3_ROUTES))
+def test_fold_routes_match_plain(dev, case):
+    seed, n, a, m, d, r, kw, m_cap, d_cap, view, want_plan = case
+    if kw is None:
+        rng = np.random.RandomState(seed)
+        reps = [random_orswot_arrays(rng, n, a, m, d, max_counter=6, deferred_frac=0.6)
+                for _ in range(r)]
+        st = _to(tuple(np.stack([rep[k] for rep in reps]) for k in range(5)), dev)
+    else:
+        st = _fleets(seed, n, a, m, d, r + (view == "ragged"), dev, deferred_frac=0.5, **kw)
+    if view == "shifted":
+        st = tuple(_shifted(x) for x in st)
+    elif view == "ragged":
+        st = tuple(x[1:] for x in st)
+        assert st[3].data_ptr() % 16 == 8
+    elif view == "dup":
+        st = [x.clone() for x in st]
+        st[1][3, ::2, 1] = st[1][3, ::2, 0]
+    plan = tile.fold_merge_plan(st, m_cap, d_cap)
+    assert (plan["actors_per_lane"], plan["route"], plan["align"]) == want_plan
+    before = _build.launch_counts()["orswot_fold"]
+    for plunger in (True, False):
+        if r == 1 and not plunger and (m, d) != (m_cap, d_cap):
+            continue
+        got = tile.fold_merge(*st, m_cap, d_cap, plunger=plunger, prebiased=True)
+        _equal(got, tile.fold_merge_reference(*st, m_cap, d_cap, plunger=plunger))
+        if kw is None:  # forced member and deferred overflow
+            assert bool(got[5].any(0).all())
+    assert _build.launch_counts()["orswot_fold"] > before
+
+
 def test_wrapper_refuses_non_contiguous_planes(dev):
     st = _fleets(5, 8, 8, 6, 2, 2, dev, base=3, novel=1)
     every_other = [tuple(x[r][::2] for x in st) for r in range(2)]

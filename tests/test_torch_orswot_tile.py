@@ -96,6 +96,47 @@ def test_fold_reference_matches_pallas_interpret():
     _assert_same(want, _unport(got))
 
 
+def _fleet_stack(seed, n, a, m, d, r, **kw):
+    fl = anti_entropy_fleets(np.random.RandomState(seed), n, a, m, d, r, **kw)
+    return tuple(np.stack([f[k] for f in fl]) for k in range(5))
+
+
+def _dup_ids(st):
+    """Replica 1 holds one id in two rows of every other object (invalid
+    state, which the kernels still fold exactly)."""
+    ids = st[1].copy()
+    ids[1, ::2, 1] = ids[1, ::2, 0]
+    return (st[0], ids) + st[2:]
+
+
+@pytest.mark.parametrize("case", [
+    # (seed, n, a, m, d, r, m_cap, d_cap, fleet kwargs, duplicate ids)
+    (20, 23, 8, 6, 2, 3, 8, 3, {"base": 3, "novel": 1}, False),
+    (21, 17, 16, 6, 2, 1, 6, 2, {"base": 4, "novel": 1}, False),
+    (22, 19, 8, 6, 2, 3, 6, 2, {"base": 3, "novel": 1}, True),
+], ids=["m_cap_d_cap_differ", "one_replica_plunger", "duplicate_ids"])
+def test_fold_matches_pallas_interpret(case):
+    """``orswot_tile.fold_merge`` on CPU tensors against the JAX fold
+    kernel run in interpret mode: capacities other than the replicas',
+    one replica with the plunger, and a replica with duplicate ids."""
+    seed, n, a, m, d, r, m_cap, d_cap, kw, dup = case
+    st = _fleet_stack(seed, n, a, m, d, r, deferred_frac=0.5, **kw)
+    if dup:
+        st = _dup_ids(st)
+    want = orswot_pallas.fold_merge(*map(jnp.asarray, st), m_cap, d_cap, interpret=True)
+    got = orswot_tile.fold_merge(*_port(st), m_cap, d_cap, prebiased=True)
+    _assert_same(want, _unport(got))
+
+
+def test_fold_wide_actors_matches_sequential_unrolled_fold():
+    """Widths whose footprint takes the fold kernel's direct route on the
+    card (A=256, M=64), against the JAX sequential unrolled fold."""
+    st = _fleet_stack(23, 5, 256, 64, 2, 3, base=24, novel=4, deferred_frac=0.5)
+    want = jops.fold_merge_sequential(*map(jnp.asarray, st), 64, 2, impl="unrolled")
+    got = orswot_tile.fold_merge(*_port(st), 64, 2, prebiased=True)
+    _assert_same(want, _unport(got))
+
+
 @pytest.mark.parametrize("plunger", [True, False])
 def test_fold_reference_is_the_sequential_unrolled_fold(plunger):
     rng = np.random.RandomState(9)
