@@ -27,12 +27,26 @@ Phases, in order; any failure ends the run with a nonzero exit:
    kernel and by ``JoinExecutor().join_all`` on eight ``OrswotBatch``
    fleets, and all must agree;
 5. regrow — a forced member-overflow ladder (m 2→4→8) through
-   ``JoinExecutor`` on the card.
+   ``JoinExecutor`` on the card;
+6. wire leg — the north-star fleets as wire blobs: each chunk's R
+   replica fleets, built on the device, are encoded by
+   ``OrswotBatch.to_wire``; then ``PipelinedWireLoop(uni,
+   device="cuda")`` (parse on a thread, H2D on a copy stream, the merge
+   kernel, D2H, encode) folds every chunk, two rounds each, in one run
+   per mode: overlapped and serial in the order O S X S O, X the
+   overlapped loop with the codec's thread team at half the cores.
+   Every run's blobs must equal ``to_wire`` of the union-aligned fold of
+   the same planes, which must equal, on 64 sampled objects, the scalar
+   engine's fold (``from_binary`` → left ``merge`` → plunger →
+   ``to_binary``); ``from_wire(to_wire(x))`` must equal ``x`` plane for
+   plane, every blob must take the host codec, and a truncated blob must
+   raise ``WireFormatError``.  At least 2 chunks, and all 20 while their
+   encoding stays inside its time budget.
 
 Launch counts are reset just before phase 4 and read just after, and
-again around phase 5.  The last lines are the kernel table (JSON), the
-card's name and power limit, and ``{"ok": true, "device": ...}``.
-Needs one CUDA card; exits nonzero without one.
+again around phases 5 and 6.  The last lines are the kernel table
+(JSON), the card's name and power limit, and ``{"ok": true, "device":
+...}``.  Needs one CUDA card; exits nonzero without one.
 """
 
 from __future__ import annotations
@@ -51,6 +65,11 @@ N_TOTAL, A, M, D, R, CHUNK = 1_250_000, 64, 16, 2, 8, 62_500
 BASE, NOVEL, DEFERRED_FRAC = 6, 1, 0.25
 U_CAP = 16
 CHECK_N = 4096
+WIRE_MIN_CHUNKS, WIRE_PREP_S, WIRE_SAMPLE, WIRE_ROUNDS = 2, 75.0, 64, 2
+# the wire loop's runs over every chunk: (label, overlap, codec team)
+WIRE_RUNS = (("overlapped", True, "all"), ("serial", False, "all"),
+             ("overlapped, half team", True, "half"), ("serial", False, "all"),
+             ("overlapped", True, "all"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 # the data sheet gives no INT32 rate: 64 INT32 lanes x 132 SMs x 1.98 GHz
 INT32_OPS_PER_S = 16.7e12
@@ -622,6 +641,189 @@ def regrow_ladder(dev):
     return stats
 
 
+# -- phase 6 -------------------------------------------------------------------
+
+
+def wire_leg(dev, card: str):
+    """Blobs → fold on the card → blobs over the north-star chunks; returns
+    the merge kernel's launches by the wire loop.
+
+    First each chunk's R fleets are built on the device and encoded by
+    ``to_wire`` (the encoder under test), beside the byte oracle:
+    ``to_wire`` of the union-aligned fold of the same planes, itself held
+    against the scalar engine's fold on a sample and through a
+    ``from_wire``/``to_wire`` round trip.  Then the loop folds every
+    chunk, two rounds each, in one run per entry of ``WIRE_RUNS``: the
+    overlapped and the serial pipeline in the order O S X S O, where X is
+    the overlapped pipeline with the codec's team at half the host's
+    cores, so that the parse and the encode running at once share the
+    cores instead of each taking them all."""
+    import os
+
+    import torch
+
+    from crdt_tpu_torch import (
+        CrdtConfig, OrswotBatch, PipelinedWireLoop, Universe, WireFormatError, _build,
+    )
+    from crdt_tpu_torch.batch import wirebulk
+    from crdt_tpu_torch.native import engine
+    from crdt_tpu_torch.ops import orswot_ops
+    from crdt_tpu_torch.utils.serde import from_binary, to_binary
+    from crdt_tpu_torch.utils.testdata import build_fleet_planes, fleet_columns
+
+    rng = np.random.RandomState(SEED + 4)
+    uni = Universe.identity(CrdtConfig.gpu_default(
+        num_actors=A, member_capacity=M, deferred_capacity=D))
+    loop = PipelinedWireLoop(uni, device=dev)
+    to_wire_s, bytes_in, bytes_out = 0.0, 0, 0
+    wirebulk.reset_wire_counts()
+    n_max = N_TOTAL // CHUNK
+    t_phase = time.perf_counter()
+    fleets, oracles = [], []
+    while len(fleets) < n_max:
+        c = len(fleets)
+        cols = fleet_columns(rng, CHUNK, A, M, D, R, base=BASE, novel=NOVEL,
+                             deferred_frac=DEFERRED_FRAC)
+        planes = build_fleet_planes(cols, a=A, m_cap=M, d=D, base=BASE, novel=NOVEL,
+                                    device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep_blobs = [OrswotBatch(*(x[r] for x in planes)).to_wire(uni) for r in range(R)]
+        to_wire_s += time.perf_counter() - t0
+        bytes_in += sum(len(b) for blobs in rep_blobs for b in blobs)
+        # the byte oracle: the union-aligned fold of the same planes
+        k1 = orswot_ops.fold_merge(*planes, M, D, impl="pallas", u_cap=U_CAP)
+        if bool(k1[5].any()):
+            raise AssertionError(f"chunk {c}: the union-aligned fold overflowed")
+        want = OrswotBatch(*k1[:5]).to_wire(uni)
+        del k1, planes
+        bytes_out += sum(len(b) for b in want)
+        # the scalar engine's fold on a sample
+        for i in rng.choice(CHUNK, WIRE_SAMPLE, replace=False).tolist():
+            acc = from_binary(rep_blobs[0][i])
+            for r in range(1, R):
+                acc.merge(from_binary(rep_blobs[r][i]))
+            acc.merge(acc.clone())
+            if to_binary(acc) != want[i]:
+                raise AssertionError(f"chunk {c}: object {i}: the scalar fold != "
+                                     "to_wire(union-aligned fold)")
+        # round trip through the codec, plane for plane
+        x = OrswotBatch.from_wire(want, uni, device=dev)
+        y = OrswotBatch.from_wire(x.to_wire(uni), uni, device=dev)
+        for name in ("clock", "ids", "dots", "d_ids", "d_clocks"):
+            if not torch.equal(getattr(x, name), getattr(y, name)):
+                raise AssertionError(f"chunk {c}: from_wire(to_wire(x)).{name} != x.{name}")
+        del x, y
+        torch.cuda.empty_cache()
+        fleets.append(rep_blobs)
+        oracles.append(want)
+        if len(fleets) >= WIRE_MIN_CHUNKS and time.perf_counter() - t_phase > WIRE_PREP_S:
+            break
+    chunks = len(fleets)
+    log(f"  {chunks} chunks encoded and their oracles checked in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    profile_loop(loop, fleets[0], card)  # also sizes the loop's buffers
+    rounds = [rep_blobs for rep_blobs in fleets for _ in range(WIRE_ROUNDS)]
+    want = [out for out in oracles for _ in range(WIRE_ROUNDS)]
+    half = max(1, len(os.sched_getaffinity(0)) // 2)
+    stages = ("parse", "h2d", "fold", "stall", "d2h", "encode")
+    sums: dict = {}
+    k2_launches = 0
+    for label, overlap, threads in WIRE_RUNS:
+        threads = half if threads == "half" else 0
+        engine.set_threads(threads)
+        before = _build.launch_counts()["orswot_merge"]
+        try:
+            res = loop.run(rounds, overlap=overlap)
+        finally:
+            engine.set_threads(0)
+        k2 = _build.launch_counts()["orswot_merge"] - before
+        if k2 < R * len(rounds):
+            raise AssertionError(f"wire loop launched the merge kernel {k2} times, "
+                                 f"< R={R} per round")
+        k2_launches += k2
+        for f in ("ingest_native_fraction", "egress_native_fraction"):
+            if res[f] != 1.0:
+                raise AssertionError(f"wire loop {f} = {res[f]} ({res['wire_counters']})")
+        if res["fold_path"] != "k2" or res["merges"] != CHUNK * R * len(rounds):
+            raise AssertionError(f"wire loop: {res['fold_path']}, {res['merges']} merges")
+        for k, (got, exp) in enumerate(zip(res["out_blobs"], want)):
+            if got != exp:
+                raise AssertionError(f"{label} run, round {k}: wire loop != "
+                                     "to_wire(union-aligned fold)")
+        per = sums.setdefault(label, dict.fromkeys(stages + ("e2e",), 0.0))
+        for k in stages:
+            per[k] += res["stage_s"][k]
+        per["e2e"] += res["e2e_s"]
+        per["runs"] = per.get("runs", 0) + 1
+        log(f"  {label} run ({len(rounds)} rounds, codec team "
+            f"{threads or 'all cores'}): e2e {res['e2e_s']:.4f} s [{card}]")
+        del res
+    counts = wirebulk.wire_counts()
+    for direction, c in counts.items():
+        if c["fallback"] or not c["native"]:
+            raise AssertionError(f"{direction}: not every blob took the host codec ({c})")
+    blob = OrswotBatch.zeros(1, uni, device=dev).to_wire(uni)[0]
+    try:
+        OrswotBatch.from_wire([blob[:-1]], uni, device=dev)
+    except WireFormatError as e:
+        log(f"  truncated blob: WireFormatError ({e})")
+    else:
+        raise AssertionError("a truncated blob did not raise WireFormatError")
+
+    objects = chunks * CHUNK
+    log(f"  {chunks} chunks of {CHUNK} objects, R={R}: every check passed (every run's "
+        f"blobs == to_wire(union-aligned fold) == the scalar fold on {WIRE_SAMPLE} sampled "
+        f"objects per chunk, from_wire(to_wire(x)) == x, native fraction 1.0 both ways: "
+        f"{counts})")
+    log(f"  wire bytes per object: {bytes_in / (objects * R):.1f} in (per replica), "
+        f"{bytes_out / objects:.1f} out; to_wire of the R input fleets "
+        f"{to_wire_s / chunks:.4f} s per chunk [{card}]")
+    log(f"  host cores: {os.cpu_count()} online, {len(os.sched_getaffinity(0))} in this "
+        f"process's affinity; split team {half}")
+    for label, per in sums.items():
+        n_rounds = per.pop("runs") * len(rounds)
+        per = {k: v / n_rounds for k, v in per.items()}
+        log(f"  loop {label}: per round of a chunk (mean of {n_rounds} rounds) "
+            + ", ".join(f"{k} {v:.4f} s" for k, v in per.items())
+            + f"; {CHUNK * R / per['e2e'] / 1e6:.3f}M merges/s end to end [{card}]")
+    return k2_launches
+
+
+def profile_loop(loop, rep_blobs, card: str):
+    """One more run of the loop under ``torch.profiler``: the device time of
+    its kernels and of its copies against the run's wall time.  A
+    measurement only: a profiler that sees no device time is logged, not
+    fatal."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loop.run([rep_blobs] * WIRE_ROUNDS, overlap=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side events only: a host op (aten::copy_) also reports the
+    # device time of the copy it started
+    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    copies = sum(t for k, t, _ in rows if "memcpy" in k.lower() or "memset" in k.lower())
+    kernels = sum(t for _, t, _ in rows) - copies
+    if not rows:
+        log("  profiler: no device time recorded (not measured)")
+        return
+    log(f"  profiler ({WIRE_ROUNDS} rounds of one chunk, overlapped): wall {wall:.4f} s, device "
+        f"kernels {kernels / 1e6:.4f} s ({kernels / 1e6 / wall:.2%} of wall), copies "
+        f"{copies / 1e6:.4f} s ({copies / 1e6 / wall:.2%}); SMs idle "
+        f"{1 - kernels / 1e6 / wall:.2%} of the wall time [{card}]")
+    for key, t, count in rows[:8]:
+        log(f"    {t / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+
+
 def main() -> int:
     import torch
 
@@ -701,9 +903,19 @@ def main() -> int:
     if (stats.overflow_regrows, stats.final_member_capacity) != (2, 8):
         raise AssertionError(f"unexpected regrow ladder: {stats}")
 
+    log("== phase 6: wire leg (blobs -> fold on the card -> blobs)")
+    _build.reset_launch_counts()
+    wire_k2 = wire_leg(dev, card)
+    wire_launches = _build.launch_counts()
+    log(f"  launches {wire_launches} (the merge kernel {wire_k2} by the wire loop; the "
+        "union-aligned fold only as the byte oracle)")
+    if wire_k2 == 0:
+        raise AssertionError("the wire loop never launched the merge kernel")
+
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
+         "wire_launches": wire_k2 if name == "orswot_merge" else 0,
          "max_abs_err": worst[name], "ms": timed[name]["ms"],
          "plain_ms": timed[name]["plain_ms"], "bound_ms": timed[name]["bound_ms"],
          "bound_by": timed[name]["bound_by"], "library_ms": None}

@@ -2,9 +2,13 @@
 
 A second package beside the JAX reference (``crdt_tpu``): dense ORSWOT
 batches held on a CUDA device, the pairwise merge and the anti-entropy
-folds, and hand-written CUDA kernels for the three hot paths
-(``csrc/``).  Entry points take ``device=`` and default to ``"cuda"``;
-pass ``device="cpu"`` to run the plain PyTorch versions.
+folds, hand-written CUDA kernels for the three hot paths (``csrc/``),
+and the wire leg — ``OrswotBatch.from_wire``/``to_wire`` through a host
+C++ codec (``native/``) and :class:`PipelinedWireLoop`, which folds wire
+blobs on the card.  The scalar engine (``scalar/``) and the serde codec
+(``utils/serde.py``) are the port's own copies.  Entry points take
+``device=`` and default to ``"cuda"``; pass ``device="cpu"`` to run the
+plain PyTorch versions.
 
 Quick start::
 
@@ -14,9 +18,13 @@ Quick start::
     fleets = [OrswotBatch.from_numpy(*planes) for planes in replica_planes]
     joined = JoinExecutor().join_all(fleets)
     members = joined.value_sets(uni)
+
+    # wire blobs in, fold on the card, wire blobs out
+    res = PipelinedWireLoop(uni).run([[fleet.to_wire(uni) for fleet in fleets]])
+    blobs = res["out_blobs"]
 """
 
-from .batch import OrswotBatch
+from .batch import OrswotBatch, PipelinedWireLoop
 from .config import CrdtConfig, MERGE_IMPLS
 from .device import resolve_device
 from .error import (
@@ -24,6 +32,7 @@ from .error import (
     CrdtError,
     DeviceUnavailableError,
     KernelError,
+    WireFormatError,
 )
 from .parallel import JoinError, JoinExecutor, JoinStats, join_all
 from .utils.interning import IdentityRegistry, Registry, Universe
@@ -40,8 +49,10 @@ __all__ = [
     "KernelError",
     "MERGE_IMPLS",
     "OrswotBatch",
+    "PipelinedWireLoop",
     "Registry",
     "Universe",
+    "WireFormatError",
     "join_all",
     "resolve_device",
 ]

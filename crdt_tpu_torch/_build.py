@@ -1,12 +1,17 @@
-"""Build and load the CUDA kernels under ``csrc/``.
+"""Build and load the CUDA kernels under ``csrc/`` and the host wire
+codec under ``native/``.
 
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` into its own shared
 library with a plain C interface and loaded with ``ctypes`` — no PyTorch
-headers, so a build takes seconds.  Libraries land in
-``build/crdt_tpu_torch/`` at the repository root, named by a hash of
-their sources and flags: a build happens at first use and is reused
-until a source changes.  Only the sources in this package are built;
-a missing ``nvcc`` or a failed compile raises :class:`KernelError`.
+headers, so a build takes seconds.  The host codec
+(``native/wire_ingest.cpp``, plain C++ on a team of threads) is compiled the same
+way by ``g++``.  Libraries land in ``build/crdt_tpu_torch/`` at the
+repository root, named by a hash of their sources and flags: a build
+happens at first use and is reused until a source changes.  Each build
+writes a temporary file of its own process and renames it into place, so
+several processes may build at once.  Only the sources in this package
+are built; a missing compiler or a failed compile raises
+:class:`KernelError`.
 
 Each kernel also keeps a launch count here (:func:`launch_counts`), a
 plain integer the wrappers add one to after every successful launch, so
@@ -20,12 +25,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
 from .error import KernelError
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+NATIVE = Path(__file__).resolve().parent / "native"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "crdt_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -50,12 +57,33 @@ KERNELS = {
         "orswot_fold_aligned_plan": [P] * 4 + [I] * 5,
     }),
 }
+GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-Wall")
+_INGEST = [P, P] + [LL] * 4 + [P] * 6 + [LL, LL]
+_ENCODE = [P] * 5 + [LL] * 4 + [P, P, LL]
+_ENCODE_ROWS = [P] * 6 + [LL] * 4 + [P, P, LL]
+# host library name -> (source under native/, {exported C function: argument types})
+HOST_LIBS = {
+    "wire_ingest": ("wire_ingest.cpp", {
+        f"{fn}_{suffix}": argtypes
+        for fn, argtypes in (("orswot_ingest_wire", _INGEST),
+                             ("orswot_encode_wire", _ENCODE),
+                             ("orswot_encode_wire_rows", _ENCODE_ROWS))
+        for suffix in ("u32", "u64")
+    }),
+}
 _RESTYPES = {
     "orswot_fold_acc_ints": LL,
     "orswot_fold_aligned_smem_per_warp": LL,
+    "orswot_ingest_wire_u32": LL,
+    "orswot_ingest_wire_u64": LL,
+    "orswot_encode_wire_u32": None,
+    "orswot_encode_wire_u64": None,
+    "orswot_encode_wire_rows_u32": None,
+    "orswot_encode_wire_rows_u64": None,
 }
 
 _LIBS: dict[tuple, ctypes.CDLL] = {}
+_LIBS_LOCK = threading.Lock()  # the wire loop's parse thread loads the codec too
 _LAUNCHES = {name: 0 for name in KERNELS}
 #: build seconds and ptxas report of each library built by this process
 BUILD_LOG: dict[str, dict] = {}
@@ -79,22 +107,42 @@ def _nvcc() -> str:
     )
 
 
+def _gxx() -> str:
+    found = shutil.which(os.environ.get("CXX", "g++")) or shutil.which("g++")
+    if found:
+        return found
+    raise KernelError(
+        "g++ not found (set CXX or put g++ on PATH); the host wire codec is "
+        "built from crdt_tpu_torch/native at first use"
+    )
+
+
+def _recipe(name: str):
+    """``(compiler, flags, source, headers hashed with it, exports)`` of
+    library ``name``."""
+    if name in KERNELS:
+        src, exports = KERNELS[name]
+        return _nvcc, NVCC_FLAGS, CSRC / src, sorted(CSRC.glob("*.cuh")), exports
+    src, exports = HOST_LIBS[name]
+    return _gxx, GXX_FLAGS, NATIVE / src, [], exports
+
+
 def _lib_path(name: str, extra: tuple[str, ...] = ()) -> Path:
-    src, _ = KERNELS[name]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(extra)).encode())
-    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / src]:
+    _, flags, src, headers, _ = _recipe(name)
+    h = hashlib.sha256(" ".join(flags + tuple(extra)).encode())
+    for f in headers + [src]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=None, extra: tuple[str, ...] = ()) -> dict[str, float]:
-    """Build every kernel library that is not built yet, one ``nvcc`` per
-    source, all started together; ``extra`` adds compiler flags (such as
-    a ``-D`` that switches on instrumentation) and names a separate
-    library.  Returns the seconds each build took (0.0 for a library
-    already on disk)."""
-    names = list(KERNELS if names is None else names)
+    """Build every library that is not built yet (by default every CUDA
+    kernel and the host codec), one compiler per source, all started
+    together; ``extra`` adds compiler flags (such as a ``-D`` that
+    switches on instrumentation) and names a separate library.  Returns
+    the seconds each build took (0.0 for a library already on disk)."""
+    names = list([*KERNELS, *HOST_LIBS] if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs, seconds = {}, {}
     for name in names:
@@ -103,7 +151,8 @@ def build_all(names=None, extra: tuple[str, ...] = ()) -> dict[str, float]:
             seconds[name] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
+        compiler, flags, src, _, _ = _recipe(name)
+        cmd = [compiler(), *flags, *extra, "-o", str(tmp), str(src)]
         try:
             proc = subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -112,7 +161,7 @@ def build_all(names=None, extra: tuple[str, ...] = ()) -> dict[str, float]:
             for started, *_ in procs.values():
                 started.kill()
                 started.wait()
-            raise KernelError(f"could not start nvcc for {name}: {e}") from e
+            raise KernelError(f"could not start the compiler for {name}: {e}") from e
         procs[name] = (proc, tmp, out, time.perf_counter())
     failed = []
     for name, (proc, tmp, out, t0) in procs.items():
@@ -121,32 +170,36 @@ def build_all(names=None, extra: tuple[str, ...] = ()) -> dict[str, float]:
         BUILD_LOG[f"{name}[{' '.join(extra)}]" if extra else name] = {
             "seconds": seconds[name], "ptxas": stderr}
         if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{stdout}{stderr}")
+            failed.append(f"{name}: {cmd[0]} exited {proc.returncode}\n{stdout}{stderr}")
             tmp.unlink(missing_ok=True)
             continue
         os.replace(tmp, out)
     if failed:
-        raise KernelError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise KernelError("build failed:\n" + "\n".join(failed))
     return seconds
 
 
 def library(name: str, extra: tuple[str, ...] = ()) -> ctypes.CDLL:
-    """The loaded library of kernel ``name`` (built with the extra
-    compiler flags ``extra``), built first if needed."""
+    """The loaded library ``name`` (a kernel of ``KERNELS`` or a host
+    library of ``HOST_LIBS``, built with the extra compiler flags
+    ``extra``), built first if needed."""
     key = (name, tuple(extra))
     lib = _LIBS.get(key)
     if lib is not None:
         return lib
-    build_all([name], extra)
-    lib = ctypes.CDLL(str(_lib_path(name, extra)))
-    for fn, argtypes in KERNELS[name][1].items():
-        f = getattr(lib, fn)
-        f.argtypes = argtypes
-        f.restype = _RESTYPES.get(fn, I)
-    lib.orswot_error_string.argtypes = [I]
-    lib.orswot_error_string.restype = ctypes.c_char_p
-    _LIBS[key] = lib
-    return lib
+    with _LIBS_LOCK:
+        if key not in _LIBS:
+            build_all([name], extra)
+            lib = ctypes.CDLL(str(_lib_path(name, extra)))
+            for fn, argtypes in _recipe(name)[4].items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = _RESTYPES.get(fn, I)
+            if name in KERNELS:
+                lib.orswot_error_string.argtypes = [I]
+                lib.orswot_error_string.restype = ctypes.c_char_p
+            _LIBS[key] = lib
+        return _LIBS[key]
 
 
 def launch(name: str, fn: str, *args) -> None:

@@ -36,6 +36,123 @@ def _np_planes(n, cfg):
     )
 
 
+def scalar_planes(states: Sequence, universe):
+    """Unsigned numpy planes ``(clock, ids, dots, d_ids, d_clocks)`` of
+    scalar ORSWOT states (anything with ``.clock.dots``, ``.entries`` and
+    ``.deferred`` as the reference engine lays them out).  Actors and
+    members are interned in the same order as the JAX package's
+    ``OrswotBatch.from_scalar``, so two universes fed the same states
+    agree on every id; member slots keep each state's entry order."""
+    cfg = universe.config
+    n = len(states)
+    m, d = cfg.member_capacity, cfg.deferred_capacity
+    clock, ids, dots, d_ids, d_clocks = _np_planes(n, cfg)
+    aidx = universe.actors.intern
+    midx = universe.members.intern
+    for i, s in enumerate(states):
+        try:
+            cd = s.clock.dots
+            ents = s.entries
+            deferred = s.deferred
+        except AttributeError as e:
+            raise TypeError(
+                f"object {i}: malformed scalar state ({type(s).__name__}: {e})"
+            ) from None
+        for actor, c in zip(list(map(aidx, cd)), cd.values()):
+            clock[i, actor] = c
+        if len(ents) > m:
+            raise ValueError(f"object {i}: {len(ents)} members > member_capacity {m}")
+        ids[i, : len(ents)] = list(map(midx, ents))
+        for slot, vc in enumerate(ents.values()):
+            vd = vc.dots
+            for actor, c in zip(list(map(aidx, vd)), vd.values()):
+                dots[i, slot, actor] = c
+        nrows = sum(len(members) for members in deferred.values())
+        if nrows > d:
+            raise ValueError(f"object {i}: {nrows} deferred rows > deferred_capacity {d}")
+        row = 0
+        for ck, members in deferred.items():
+            cols = [(aidx(actor), counter) for actor, counter in ck]
+            for member in members:
+                d_ids[i, row] = midx(member)
+                for actor, c in cols:
+                    d_clocks[i, row, actor] = c
+                row += 1
+    return clock, ids, dots, d_ids, d_clocks
+
+
+def _cells(clock, ids, dots, d_ids, d_clocks):
+    """The populated cells of unsigned host planes, in row-major order:
+    set-clock ``(obj, actor, value)``, entries ``(obj, slot, id)``, entry
+    dots ``(obj, slot, actor, value)``, deferred ids ``(obj, row, id)``
+    and deferred clocks ``(obj, row, actor, value)``."""
+    co, ca = np.nonzero(clock)
+    eo, es = np.nonzero(ids != EMPTY)
+    do, ds, da = np.nonzero(dots)
+    qo, qr = np.nonzero(d_ids != EMPTY)
+    ho, hr, ha = np.nonzero(d_clocks)
+    return ((co, ca, clock[co, ca]), (eo, es, ids[eo, es]), (do, ds, da, dots[do, ds, da]),
+            (qo, qr, d_ids[qo, qr]), (ho, hr, ha, d_clocks[ho, hr, ha]))
+
+
+def _resolve_members(universe, id_array):
+    """One registry lookup per unique member id of a cell column, plus the
+    inverse index per cell."""
+    uniq, inv = np.unique(id_array, return_inverse=True)
+    member_of = universe.members.lookup
+    return [member_of(int(m)) for m in uniq], inv
+
+
+def scalars_of_planes(planes, universe) -> list:
+    """Scalar ORSWOT states of unsigned host planes — the Python loop of
+    the JAX package's ``OrswotBatch.to_scalar``: it walks the populated
+    cells only, never the dense ``[N, M, A]`` volume, and inserts entries
+    in slot order."""
+    from ..scalar.orswot import Orswot
+    from ..scalar.vclock import VClock
+
+    n, a = planes[0].shape
+    (co, ca, cv), (eo, es, em), (do, ds, da, dv), (qo, qr, qm), (ho, hr, ha, hv) = \
+        _cells(*planes)
+    n_interned = len(universe.actors)
+    actor_name = [universe.actors.lookup(i) if i < n_interned else None for i in range(a)]
+    out = [Orswot() for _ in range(n)]
+    for i, aix, v in zip(co.tolist(), ca.tolist(), cv.tolist()):
+        out[i].clock.dots[actor_name[aix]] = v
+    uniq_names, inv = _resolve_members(universe, em)
+    entry_clocks = {}
+    for i, j, u in zip(eo.tolist(), es.tolist(), inv.tolist()):
+        vc = VClock()
+        out[i].entries[uniq_names[u]] = vc
+        entry_clocks[(i, j)] = vc
+    for i, j, aix, v in zip(do.tolist(), ds.tolist(), da.tolist(), dv.tolist()):
+        entry_clocks[(i, j)].dots[actor_name[aix]] = v
+    if qo.size:
+        deferred_clocks, deferred_members = {}, {}
+        d_names, d_inv = _resolve_members(universe, qm)
+        for i, j, u in zip(qo.tolist(), qr.tolist(), d_inv.tolist()):
+            deferred_clocks[(i, j)] = VClock()
+            deferred_members[(i, j)] = d_names[u]
+        for i, j, aix, v in zip(ho.tolist(), hr.tolist(), ha.tolist(), hv.tolist()):
+            if (i, j) in deferred_clocks:
+                deferred_clocks[(i, j)].dots[actor_name[aix]] = v
+        for (i, j), vc in deferred_clocks.items():
+            out[i].deferred.setdefault(vc.key(), set()).add(deferred_members[(i, j)])
+    return out
+
+
+def planes_to_wire(planes, universe) -> list[bytes]:
+    """Wire blobs of unsigned host planes: the host codec where it
+    applies, else ``to_binary`` of :func:`scalars_of_planes`."""
+    from ..utils.serde import to_binary
+    from .wirebulk import orswot_planes_to_wire
+
+    blobs = orswot_planes_to_wire(*planes, universe)
+    if blobs is None:
+        return [to_binary(s) for s in scalars_of_planes(planes, universe)]
+    return blobs
+
+
 @dataclasses.dataclass
 class OrswotBatch:
     clock: torch.Tensor  # int[N, A], biased
@@ -78,47 +195,54 @@ class OrswotBatch:
 
     @classmethod
     def from_scalar(cls, states: Sequence, universe, device=None) -> "OrswotBatch":
-        """Pack scalar ORSWOT states (anything with ``.clock.dots``,
-        ``.entries`` and ``.deferred`` as the reference engine lays them
-        out) into a batch.  Actors and members are interned in the same
-        order as the JAX package's ``OrswotBatch.from_scalar``, so two
-        universes fed the same states agree on every id."""
-        cfg = universe.config
-        n = len(states)
-        m, d = cfg.member_capacity, cfg.deferred_capacity
-        clock, ids, dots, d_ids, d_clocks = _np_planes(n, cfg)
-        aidx = universe.actors.intern
-        midx = universe.members.intern
-        for i, s in enumerate(states):
-            try:
-                cd = s.clock.dots
-                ents = s.entries
-                deferred = s.deferred
-            except AttributeError as e:
-                raise TypeError(
-                    f"object {i}: malformed scalar state ({type(s).__name__}: {e})"
-                ) from None
-            for actor, c in zip(list(map(aidx, cd)), cd.values()):
-                clock[i, actor] = c
-            if len(ents) > m:
-                raise ValueError(f"object {i}: {len(ents)} members > member_capacity {m}")
-            ids[i, : len(ents)] = list(map(midx, ents))
-            for slot, vc in enumerate(ents.values()):
-                vd = vc.dots
-                for actor, c in zip(list(map(aidx, vd)), vd.values()):
-                    dots[i, slot, actor] = c
-            nrows = sum(len(members) for members in deferred.values())
-            if nrows > d:
-                raise ValueError(f"object {i}: {nrows} deferred rows > deferred_capacity {d}")
-            row = 0
-            for ck, members in deferred.items():
-                cols = [(aidx(actor), counter) for actor, counter in ck]
-                for member in members:
-                    d_ids[i, row] = midx(member)
-                    for actor, c in cols:
-                        d_clocks[i, row, actor] = c
-                    row += 1
-        return cls.from_numpy(clock, ids, dots, d_ids, d_clocks, device=device)
+        """Pack scalar ORSWOT states into a batch on ``device`` (see
+        :func:`scalar_planes`)."""
+        return cls.from_numpy(*scalar_planes(states, universe), device=device)
+
+    @classmethod
+    def from_wire(cls, blobs: Sequence[bytes], universe, device=None) -> "OrswotBatch":
+        """Bulk ingest straight from wire blobs (``to_binary(orswot)``
+        payloads, the replication format).
+
+        With an identity universe (int actors < ``num_actors``, int32
+        members) the host codec (``native/wire_ingest.cpp``) parses the
+        blobs in parallel straight into dense planes; blobs outside its
+        integer-keyed grammar (string members, big-int counters) are
+        decoded by the scalar codec and spliced in, so
+        ``from_wire(blobs, uni)`` always equals ``from_scalar([from_binary(b)
+        for b in blobs], uni)``, member-slot order included (wire order).
+        Any other universe takes the Python codec for the whole batch.
+        A blob that does not decode, or does not fit the universe's
+        capacities, raises :class:`~crdt_tpu_torch.error.WireFormatError`.
+        The counters are biased into the device domain after the parse,
+        by :meth:`from_numpy`."""
+        from .wirebulk import orswot_planes_from_wire, planes_of_blobs
+
+        dev = resolve_device(device)
+        if len(blobs) == 0:
+            return cls.zeros(0, universe, device=dev)
+        planes = orswot_planes_from_wire(blobs, universe)
+        if planes is None:
+            planes = planes_of_blobs(blobs, universe)
+        return cls.from_numpy(*planes, device=dev)
+
+    def to_wire(self, universe) -> list[bytes]:
+        """Bulk egress to wire blobs — the inverse of :meth:`from_wire`,
+        byte-identical to ``[to_binary(s) for s in self.to_scalar(uni)]``.
+
+        The counters are unbiased first (:meth:`to_numpy`); then, with an
+        identity universe, the host codec encodes the planes in parallel,
+        reproducing the serde codec's orderings exactly.  Counters at or
+        above 2^63 (u64 planes only) and other universes take the Python
+        encoder."""
+        if self.clock.shape[0] == 0:
+            return []
+        return planes_to_wire(self.to_numpy(), universe)
+
+    def to_scalar(self, universe) -> list:
+        """The scalar ORSWOT state of every object (the port's own scalar
+        engine, :mod:`crdt_tpu_torch.scalar`)."""
+        return scalars_of_planes(self.to_numpy(), universe)
 
     # -- shape ---------------------------------------------------------------
 

@@ -12,7 +12,10 @@ over the full unsigned range.  Counter 0 becomes the type's minimum,
 
 The bias is applied and removed only at the package edge:
 :meth:`OrswotBatch.from_numpy <crdt_tpu_torch.batch.OrswotBatch.from_numpy>`
-and ``to_numpy``.
+and ``to_numpy`` (and so ``from_wire`` and ``to_wire``, whose host codec
+reads and writes unsigned counters), and around the copies of
+:class:`~crdt_tpu_torch.batch.wireloop.PipelinedWireLoop` (biased on the
+device after each host-to-device copy, unbiased before the copy back).
 """
 
 from __future__ import annotations
@@ -67,10 +70,11 @@ def to_device(x: np.ndarray, device) -> torch.Tensor:
 
 
 def counters_to_numpy(t: torch.Tensor) -> np.ndarray:
-    """Biased device counter plane → unsigned numpy plane."""
+    """Biased device counter plane → unsigned numpy plane (unbiased where
+    the plane lives, then copied to the host once)."""
     if t.dtype not in _UNSIGNED:
         raise TypeError(f"biased counter planes are int32 or int64, got {t.dtype}")
-    return unbias_np(t.detach().cpu().numpy())
+    return (t.detach() ^ zero_of(t.dtype)).cpu().numpy().view(_UNSIGNED[t.dtype])
 
 
 def bias_torch_u32(x: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """Error types of the port.
 
-Own copies of the JAX package's ``CrdtError``, ``CapacityOverflowError``
-and ``raise_for_overflow`` (the port imports nothing of that package),
-plus the errors that only a GPU build has: a missing card, a kernel that
-does not build, a launch that the CUDA runtime refuses.
+Own copies of the JAX package's ``CrdtError``, ``ConflictingMarker``,
+``CapacityOverflowError``, ``WireFormatError`` and ``raise_for_overflow``
+(the port imports nothing of that package), plus the errors that only a
+GPU build has: a missing card, a kernel or the host codec that does not
+build, a launch that the CUDA runtime refuses.
 """
 
 from __future__ import annotations
@@ -11,6 +12,25 @@ from __future__ import annotations
 
 class CrdtError(Exception):
     """Base class for all CRDT errors."""
+
+
+class ConflictingMarker(CrdtError):
+    """A conflicting change witnessed by a marker/dot that already exists.
+
+    Reference: `error.rs:9-13` — "Dot's are used exactly once for the
+    lifetime of a CRDT".
+    """
+
+    def __str__(self) -> str:
+        base = "Dot's are used exactly once for the lifetime of a CRDT"
+        return f"{base}: {self.args[0]}" if self.args else base
+
+
+class WireFormatError(CrdtError, ValueError):
+    """A wire blob violated the binary grammar or the static capacities
+    of the receiving fleet (actor outside the identity registry, more
+    members than ``member_capacity``, ...).  Subclasses ``ValueError``,
+    as the scalar codec's decode errors are ``ValueError``."""
 
 
 class CapacityOverflowError(CrdtError, ValueError):
@@ -31,7 +51,8 @@ class DeviceUnavailableError(CrdtError, RuntimeError):
 
 
 class KernelError(CrdtError, RuntimeError):
-    """A CUDA kernel did not build, or its launch returned an error.
+    """A CUDA kernel or the host wire codec did not build, or a kernel's
+    launch returned an error.
 
     Deterministic by nature: the join executor never requeues it as a
     transient failure."""

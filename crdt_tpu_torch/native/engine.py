@@ -1,0 +1,163 @@
+"""``ctypes`` bindings of the host wire codec (``wire_ingest.cpp``).
+
+Numpy in, numpy out, on the host: the codec parses serde blobs straight
+into dense ORSWOT planes and encodes planes back into blobs, in
+parallel over objects (a team of threads).  Counters cross this boundary UNSIGNED
+(``uint32`` or ``uint64``, 0 = absent), as the JAX package's planes hold
+them; the batch layer moves them into and out of the biased device
+domain (:mod:`crdt_tpu_torch.dtypes`).  The library is built with
+``g++`` at first use (:mod:`crdt_tpu_torch._build`); a failed build
+raises :class:`~crdt_tpu_torch.error.KernelError`.
+
+The size of the codec's thread team is set once for every binding by
+:func:`set_threads` (0, the default, = the host's hardware threads).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+
+from .. import _build
+
+_SUFFIX = {np.dtype(np.uint32): "u32", np.dtype(np.uint64): "u64"}
+_THREADS = 0
+
+
+def set_threads(threads: int) -> None:
+    """The codec's team size for every later call (0 = the host's
+    hardware threads).  Tests hold it to 1 so that parallel test workers
+    do not oversubscribe the host."""
+    global _THREADS
+    if threads < 0:
+        raise ValueError(f"threads must be >= 0, got {threads}")
+    _THREADS = int(threads)
+
+
+def _fn(name: str, dtype):
+    suf = _SUFFIX.get(np.dtype(dtype))
+    if suf is None:
+        raise TypeError(f"unsupported counter dtype {dtype!r} (uint32/uint64)")
+    return getattr(_build.library("wire_ingest"), f"{name}_{suf}")
+
+
+def _ptr(arr: np.ndarray):
+    return arr.ctypes.data_as(ctypes.c_void_p)
+
+
+def _contig(*arrays):
+    return tuple(np.ascontiguousarray(x) for x in arrays)
+
+
+def _check_planes(planes):
+    """``(n, a, m, d, counter dtype)`` of C-contiguous planes ``(clock,
+    ids, dots, d_ids, d_clocks)``; raises unless their shapes and dtypes
+    agree, since the codec reads them by those sizes."""
+    clock, ids, dots, d_ids, d_clocks = planes
+    if clock.ndim != 2 or ids.ndim != 2 or d_ids.ndim != 2:
+        raise ValueError("clock, ids and d_ids must be 2-D planes")
+    n, a = clock.shape
+    m, d = ids.shape[1], d_ids.shape[1]
+    for name, x, shape in (("ids", ids, (n, m)), ("dots", dots, (n, m, a)),
+                           ("d_ids", d_ids, (n, d)), ("d_clocks", d_clocks, (n, d, a))):
+        if x.shape != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got {x.shape}")
+    for name, x in (("ids", ids), ("d_ids", d_ids)):
+        if x.dtype != np.int32:
+            raise TypeError(f"{name} must be int32, got {x.dtype}")
+    dt = np.dtype(clock.dtype)
+    for x in (dots, d_clocks):
+        if np.dtype(x.dtype) != dt:
+            raise TypeError(f"counter dtype mismatch: {dt} vs {x.dtype}")
+    return n, a, m, d, dt
+
+
+def orswot_ingest_wire(buf, offsets, a: int, m: int, d: int, dtype, out=None):
+    """Parallel decode of ``n`` concatenated ORSWOT blobs straight into
+    dense planes.
+
+    ``buf``: the concatenated serde blobs (bytes or uint8 array);
+    ``offsets``: int64[n+1] blob boundaries.  Identity interning is
+    assumed (the caller guarantees an identity universe): actor index ==
+    actor value (< ``a``), member id == member value (int32).
+
+    ``out``: optional preallocated ``(clock, ids, dots, d_ids, d_clocks)``
+    to decode into (the shapes and dtypes the call would otherwise
+    allocate, C-contiguous).  The parser then clears each object's rows
+    itself before writing (``clear=1``), so buffers may be REUSED across
+    calls — fresh plane sets per call page-fault GBs of zeroed memory at
+    fleet scale, which is what the wire loop's staging sets avoid.
+
+    Returns ``(clock, ids, dots, d_ids, d_clocks, status)`` where
+    ``status`` is uint8[n]: 0 ok, 1 outside the fast-path grammar (decode
+    it in Python), 2 member overflow, 3 deferred overflow, 4 actor out of
+    range.  Rows with nonzero status are left empty."""
+    buf = np.ascontiguousarray(np.frombuffer(buf, dtype=np.uint8))
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    n = offsets.shape[0] - 1
+    if offsets.ndim != 1 or n < 0 or (n and (offsets[0] < 0 or offsets[-1] > buf.size
+                                             or bool((np.diff(offsets) < 0).any()))):
+        raise ValueError(f"offsets must be {n + 1} non-decreasing boundaries within the "
+                         f"{buf.size}-byte buffer")
+    dt = np.dtype(dtype)
+    expect = (((n, a), dt), ((n, m), np.dtype(np.int32)), ((n, m, a), dt),
+              ((n, d), np.dtype(np.int32)), ((n, d, a), dt))
+    if out is None:
+        clear = 0
+        planes = tuple(np.full(shape, -1 if dt_ == np.int32 else 0, dtype=dt_)
+                       for shape, dt_ in expect)
+    else:
+        clear = 1
+        planes = tuple(out)
+        for name, x, (shape, dt_) in zip(("clock", "ids", "dots", "d_ids", "d_clocks"),
+                                         planes, expect):
+            if (not isinstance(x, np.ndarray) or x.shape != shape or x.dtype != dt_
+                    or not x.flags.c_contiguous):
+                raise ValueError(
+                    f"out[{name}]: need C-contiguous {dt_}{shape}, got "
+                    f"{getattr(x, 'dtype', type(x))}{getattr(x, 'shape', '')}")
+    status = np.zeros(n, dtype=np.uint8)
+    _fn("orswot_ingest_wire", dt)(
+        _ptr(buf), _ptr(offsets), n, a, m, d, *(_ptr(x) for x in planes),
+        _ptr(status), clear, _THREADS,
+    )
+    return (*planes, status)
+
+
+def _encode(fn, planes, lead, n_out):
+    """The codec's two passes: blob sizes into ``offsets[1:]``, prefix
+    sum, then the blobs into one buffer."""
+    offsets = np.zeros(n_out + 1, dtype=np.int64)
+    fn(*(_ptr(x) for x in planes), *lead, _ptr(offsets), None, _THREADS)
+    np.cumsum(offsets, out=offsets)
+    buf = np.empty(int(offsets[-1]), dtype=np.uint8)
+    fn(*(_ptr(x) for x in planes), *lead, _ptr(offsets), _ptr(buf), _THREADS)
+    return buf, offsets
+
+
+def orswot_encode_wire(clock, ids, dots, d_ids, d_clocks):
+    """Parallel encode of dense planes into serde blobs — the inverse of
+    :func:`orswot_ingest_wire`, byte-identical to ``to_binary`` of the
+    per-object scalar states (identity universes).
+
+    Returns ``(buf, offsets)``: concatenated blobs and int64[n+1]
+    boundaries (blob i is ``buf[offsets[i]:offsets[i+1]]``)."""
+    planes = _contig(clock, ids, dots, d_ids, d_clocks)
+    n, a, m, d, dt = _check_planes(planes)
+    return _encode(_fn("orswot_encode_wire", dt), planes, (n, a, m, d), n)
+
+
+def orswot_encode_wire_rows(clock, ids, dots, d_ids, d_clocks, rows):
+    """Indexed encode: only the fleet rows named by ``rows`` (int64
+    indices), straight from the full planes — byte-identical to gathering
+    the rows and calling :func:`orswot_encode_wire`, without the gather
+    copy.  Returns ``(buf, offsets)`` in ``rows`` order."""
+    planes = _contig(clock, ids, dots, d_ids, d_clocks)
+    n, a, m, d, dt = _check_planes(planes)
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    if rows.size and (rows.min() < 0 or rows.max() >= n):
+        raise ValueError(f"orswot_encode_wire_rows: row indices must lie in [0, {n}); "
+                         f"got [{int(rows.min())}, {int(rows.max())}]")
+    k = rows.shape[0]
+    return _encode(_fn("orswot_encode_wire_rows", dt), (*planes, rows), (k, a, m, d), k)

@@ -1,0 +1,668 @@
+// wire_ingest — bulk ORSWOT wire codec: blobs straight into dense planes
+// and dense planes straight back to blobs, on the host.
+//
+// The port's own copy of the ORSWOT legs of the JAX package's native codec
+// (crdt_tpu_torch imports nothing of that package).  The wire format is
+// the framework's serde codec (crdt_tpu_torch/utils/serde.py, a
+// deterministic varint/tag format — deliberately NOT the reference's
+// bincode): states arrive and leave as byte blobs.  Decoding them one by
+// one into scalar objects and packing those is three orders of magnitude
+// too slow for fleet-sized rounds, so this translation unit parses the
+// blobs IN PARALLEL directly into the dense planes, and encodes planes
+// back to blobs byte-identical to ``to_binary`` — no Python objects.
+//
+// Fast-path grammar (the subset covering integer actors/members — the
+// dense batches' native domain; any blob outside it is flagged for the
+// Python fallback, never mis-parsed):
+//
+//   ORSWOT    := 0x26 clock_body entries deferred
+//   clock_body:= uv n, n * pair
+//   pair      := 0x03 uv zz(actor) 0x03 uv zz(counter)
+//   entries   := uv n, n * ( 0x03 uv zz(member) 0x20 clock_body )
+//   deferred  := uv n, n * ( clock_key uv m, m * (0x03 uv zz(member)) )
+//   clock_key := 0x08 uv k, k * ( 0x08 uv(2) 0x03 uv zz(actor)
+//                                            0x03 uv zz(counter) )
+//
+// (uv = unsigned LEB128 varint, zz = zigzag; tags from serde.py: 0x03 int,
+// 0x08 tuple, 0x20 vclock, 0x26 orswot.)
+//
+// Identity interning: the caller guarantees a Universe whose actor index
+// IS the actor value (< A) and whose member id IS the member value
+// (int32).  Counters beyond the counter dtype flag the blob for fallback
+// (the Python path raises OverflowError at the numpy conversion; the fast
+// path must never silently wrap a causal counter).  Counters are written
+// and read UNSIGNED (0 = absent); the caller moves them to and from the
+// biased device domain.
+//
+// Per-object status codes (status[i]):
+//   0 ok    1 fallback (structure outside the fast-path grammar)
+//   2 member overflow (> M)      3 deferred overflow (> D)
+//   4 actor out of range (>= A or negative)
+//
+// Each object writes only its own rows, so the object loops are
+// embarrassingly parallel: a team of std::threads takes blocks of 1024
+// objects from a shared cursor (the JAX package's codec uses OpenMP; plain
+// threads need no OpenMP runtime from the compiler).  Every entry point
+// takes ``threads``: the team size, or 0 for the host's hardware threads.
+//
+// Build: g++ -O3 -std=c++17 -fPIC -shared -pthread
+// (crdt_tpu_torch/_build.py, at first use, into build/crdt_tpu_torch/).
+
+#include <algorithm>
+#include <atomic>
+#include <cstdint>
+#include <cstdio>
+#include <cstring>
+#include <thread>
+#include <vector>
+
+
+namespace {
+
+constexpr uint8_t kTagInt = 0x03;
+constexpr uint8_t kTagTuple = 0x08;
+constexpr uint8_t kTagVClock = 0x20;
+constexpr uint8_t kTagOrswot = 0x26;
+constexpr int32_t kEmpty = -1;
+
+// body(i) for every i in [0, n), on ``nt`` threads (the caller's among
+// them) taking blocks of kGrain indices from a shared cursor
+constexpr int64_t kGrain = 1024;
+
+template <typename F>
+void parallel_for(int64_t n, int nt, const F& body) {
+  const int64_t blocks = (n + kGrain - 1) / kGrain;
+  if (nt > blocks) nt = static_cast<int>(blocks);
+  if (nt <= 1) {
+    for (int64_t i = 0; i < n; ++i) body(i);
+    return;
+  }
+  std::atomic<int64_t> next{0};
+  auto work = [&] {
+    for (;;) {
+      const int64_t lo = next.fetch_add(kGrain);
+      if (lo >= n) return;
+      const int64_t hi = lo + kGrain < n ? lo + kGrain : n;
+      for (int64_t i = lo; i < hi; ++i) body(i);
+    }
+  };
+  std::vector<std::thread> team;
+  team.reserve(static_cast<size_t>(nt - 1));
+  for (int t = 1; t < nt; ++t) team.emplace_back(work);
+  work();
+  for (std::thread& t : team) t.join();
+}
+
+struct Cursor {
+  const uint8_t* p;
+  const uint8_t* end;
+
+  bool byte(uint8_t want) {
+    if (p >= end || *p != want) return false;
+    ++p;
+    return true;
+  }
+
+  // unsigned LEB128, capped at the u64 range — anything longer (or any
+  // byte contributing bits past 2^64) is a legitimate big-int payload
+  // the fast path hands to Python rather than silently truncating
+  bool uv(uint64_t* out) {
+    uint64_t v = 0;
+    int shift = 0;
+    for (int i = 0; i < 10; ++i) {
+      if (p >= end) return false;
+      uint8_t b = *p++;
+      if (shift == 63 && (b & 0x7F) > 1) return false;  // bits >= 2^64
+      v |= static_cast<uint64_t>(b & 0x7F) << shift;
+      if (!(b & 0x80)) {
+        *out = v;
+        return true;
+      }
+      shift += 7;
+    }
+    return false;
+  }
+
+  // a zigzagged NON-NEGATIVE int (actors/members/counters are never
+  // negative in valid states; negative means fallback)
+  bool nonneg(uint64_t* out) {
+    uint64_t z;
+    if (!byte(kTagInt) || !uv(&z)) return false;
+    if (z & 1) return false;  // negative
+    *out = z >> 1;
+    return true;
+  }
+};
+
+// defined with the egress helpers below; declared here for the parsers'
+// canonical-order checks
+bool varint_bytes_less(uint64_t za, uint64_t zb);
+
+// deferred section: uv groups, each a
+// clock-key tuple + member/key list.  One dense row per (clock, id)
+// pair; the witnessing clock is decoded once into a thread-local
+// scratch row and copied to every row buffered under it (matches
+// from_scalar's layout: `for member in members: one row sharing the
+// clock columns`).
+template <typename C>
+int parse_deferred_section(Cursor& c, int64_t A, int64_t D, int32_t* d_ids,
+                           C* d_clocks) {
+  constexpr uint64_t kCounterMax = static_cast<uint64_t>(~C{0});
+  uint64_t n;
+  if (!c.uv(&n)) return 1;
+  static thread_local std::vector<C> scratch;
+  int64_t drow = 0;
+  // canonical-order enforcement (same rationale as the entry/key checks:
+  // to_binary emits groups strictly ascending in encoded clock-key
+  // bytes and members strictly ascending within a group — a duplicate
+  // group or member would buffer extra dense rows where the Python
+  // decode dedupes via dict/set, so non-canonical input falls back)
+  const uint8_t* prev_key = nullptr;
+  size_t prev_key_len = 0;
+  for (uint64_t q = 0; q < n; ++q) {
+    const uint8_t* key_start = c.p;
+    if (!c.byte(kTagTuple)) return 1;
+    uint64_t k;
+    if (!c.uv(&k)) return 1;
+    scratch.assign(static_cast<size_t>(A), C{0});
+    for (uint64_t i = 0; i < k; ++i) {
+      uint64_t two, actor, counter;
+      if (!c.byte(kTagTuple) || !c.uv(&two) || two != 2) return 1;
+      if (!c.nonneg(&actor) || !c.nonneg(&counter)) return 1;
+      if (actor >= static_cast<uint64_t>(A)) return 4;
+      if (counter > kCounterMax) return 1;
+      scratch[actor] = static_cast<C>(counter);
+    }
+    const size_t key_len = static_cast<size_t>(c.p - key_start);
+    if (q > 0) {
+      // strictly ascending encoded clock-key bytes (the egress group
+      // comparator: memcmp, shorter-is-less on shared-prefix tie)
+      const size_t m_ = prev_key_len < key_len ? prev_key_len : key_len;
+      const int cmp = std::memcmp(prev_key, key_start, m_);
+      if (!(cmp < 0 || (cmp == 0 && prev_key_len < key_len))) return 1;
+    }
+    prev_key = key_start;
+    prev_key_len = key_len;
+    uint64_t m;
+    if (!c.uv(&m)) return 1;
+    uint64_t prev_member = 0;
+    for (uint64_t j = 0; j < m; ++j) {
+      uint64_t member;
+      if (!c.nonneg(&member)) return 1;
+      if (member > 0x7FFFFFFFull) return 1;
+      if (j > 0 && !varint_bytes_less(prev_member << 1, member << 1))
+        return 1;
+      prev_member = member;
+      if (drow >= D) return 3;
+      std::memcpy(d_clocks + drow * A, scratch.data(), sizeof(C) * A);
+      d_ids[drow] = static_cast<int32_t>(member);
+      ++drow;
+    }
+  }
+  return 0;
+}
+
+// one full ORSWOT value from the cursor (tag 0x26 through the deferred
+// section, NO end-of-blob check)
+template <typename C>
+int parse_orswot_value(Cursor& c, int64_t A, int64_t M, int64_t D, C* clock,
+                       int32_t* ids, C* dots, int32_t* d_ids, C* d_clocks) {
+  // counters beyond the counter dtype are NOT wrapped: the Python path
+  // (numpy conversion) raises OverflowError, so the fast path flags the
+  // blob for fallback and lets that exact behavior happen
+  constexpr uint64_t kCounterMax = static_cast<uint64_t>(~C{0});
+  if (!c.byte(kTagOrswot)) return 1;
+
+  uint64_t n;
+  // set clock
+  if (!c.uv(&n)) return 1;
+  for (uint64_t i = 0; i < n; ++i) {
+    uint64_t actor, counter;
+    if (!c.nonneg(&actor) || !c.nonneg(&counter)) return 1;
+    if (actor >= static_cast<uint64_t>(A)) return 4;
+    if (counter > kCounterMax) return 1;
+    clock[actor] = static_cast<C>(counter);
+  }
+
+  // member entries (dense slots in wire order — the same order the
+  // Python fallback's from_binary hands from_scalar).  Members must be
+  // strictly ascending in encoded-key-bytes order — what to_binary
+  // always emits; a duplicate would silently yield two live slots where
+  // the Python dict decode dedupes into one, so anything non-canonical
+  // falls back to the Python path (which dedupes/handles it ITS way)
+  if (!c.uv(&n)) return 1;
+  if (n > static_cast<uint64_t>(M)) return 2;
+  uint64_t prev_member = 0;
+  for (uint64_t e = 0; e < n; ++e) {
+    uint64_t member;
+    if (!c.nonneg(&member)) return 1;
+    if (member > 0x7FFFFFFFull) return 1;  // beyond int32 id space
+    if (e > 0 && !varint_bytes_less(prev_member << 1, member << 1)) return 1;
+    prev_member = member;
+    ids[e] = static_cast<int32_t>(member);
+    if (!c.byte(kTagVClock)) return 1;
+    uint64_t k;
+    if (!c.uv(&k)) return 1;
+    C* row = dots + e * A;
+    for (uint64_t i = 0; i < k; ++i) {
+      uint64_t actor, counter;
+      if (!c.nonneg(&actor) || !c.nonneg(&counter)) return 1;
+      if (actor >= static_cast<uint64_t>(A)) return 4;
+      if (counter > kCounterMax) return 1;
+      row[actor] = static_cast<C>(counter);
+    }
+  }
+
+  // deferred: one dense row per (clock, member) pair
+  return parse_deferred_section<C>(c, A, D, d_ids, d_clocks);
+}
+
+template <typename C>
+int parse_one(const uint8_t* buf, int64_t lo, int64_t hi, int64_t A,
+              int64_t M, int64_t D, C* clock, int32_t* ids, C* dots,
+              int32_t* d_ids, C* d_clocks) {
+  Cursor c{buf + lo, buf + hi};
+  int st = parse_orswot_value<C>(c, A, M, D, clock, ids, dots, d_ids,
+                                 d_clocks);
+  if (st) return st;
+  if (c.p != c.end) return 1;  // trailing bytes: not a lone ORSWOT blob
+  return 0;
+}
+
+template <typename C>
+void clear_orswot_row(int64_t A, int64_t M, int64_t D, C* clock, int32_t* ids,
+                      C* dots, int32_t* d_ids, C* d_clocks) {
+  std::memset(clock, 0, sizeof(C) * A);
+  std::memset(dots, 0, sizeof(C) * M * A);
+  std::memset(d_clocks, 0, sizeof(C) * D * A);
+  for (int64_t j = 0; j < M; ++j) ids[j] = kEmpty;
+  for (int64_t j = 0; j < D; ++j) d_ids[j] = kEmpty;
+}
+
+// ``clear`` != 0: zero each object's output rows before parsing, so the
+// caller may hand REUSED buffers (the pipelined loop's staging planes —
+// a fresh np.zeros alloc per chunk page-faults ~GBs and was the measured
+// ingest collapse of the JAX package's loop).  0 keeps the contract
+// (caller pre-zeroed the planes) and skips the memset pass.
+template <typename C>
+int64_t ingest_impl(const uint8_t* buf, const int64_t* offsets, int64_t n,
+                    int64_t A, int64_t M, int64_t D, C* clock, int32_t* ids,
+                    C* dots, int32_t* d_ids, C* d_clocks, uint8_t* status,
+                    int64_t clear, int nt) {
+  std::atomic<int64_t> bad{0};
+  parallel_for(n, nt, [&](int64_t i) {
+    if (clear)
+      clear_orswot_row<C>(A, M, D, clock + i * A, ids + i * M,
+                          dots + i * M * A, d_ids + i * D, d_clocks + i * D * A);
+    int st = parse_one<C>(buf, offsets[i], offsets[i + 1], A, M, D,
+                          clock + i * A, ids + i * M, dots + i * M * A,
+                          d_ids + i * D, d_clocks + i * D * A);
+    status[i] = static_cast<uint8_t>(st);
+    if (st != 0) {
+      // leave the row pristine for the Python fallback / error report
+      clear_orswot_row<C>(A, M, D, clock + i * A, ids + i * M,
+                          dots + i * M * A, d_ids + i * D, d_clocks + i * D * A);
+      bad.fetch_add(1);
+    }
+  });
+  return bad.load();
+}
+
+// ---- bulk wire EGRESS: dense planes -> serde blobs -------------------------
+//
+// The inverse direction, byte-identical to
+// `to_binary(batch.to_scalar(uni)[i])` for identity universes.  Three
+// distinct deterministic orderings must be reproduced exactly
+// (serde.py):
+//   * pair/item lists sort by the ENCODED BYTES of the key
+//     (enc_pairs_sorted / enc_items_sorted — python bytes comparison:
+//     lexicographic, shorter-prefix-first),
+//   * ClockKey tuples (deferred keys) sort their (actor, counter) pairs
+//     by repr(actor) — DECIMAL-STRING order for ints (vclock.py key()),
+//   * deferred GROUPS sort by the encoded bytes of the whole clock-key
+//     tuple.
+
+struct Emitter {
+  uint8_t* p;      // nullptr = counting pass
+  int64_t count = 0;
+
+  void byte(uint8_t b) {
+    if (p) *p++ = b;
+    ++count;
+  }
+
+  void uv(uint64_t v) {
+    while (true) {
+      uint8_t b = v & 0x7F;
+      v >>= 7;
+      if (v) {
+        byte(b | 0x80);
+      } else {
+        byte(b);
+        return;
+      }
+    }
+  }
+
+  void tagged_nonneg(uint64_t v) {  // 0x03 + zigzag varint
+    byte(kTagInt);
+    uv(v << 1);
+  }
+};
+
+inline int write_varint(uint64_t v, uint8_t* out) {
+  int n = 0;
+  while (true) {
+    uint8_t b = v & 0x7F;
+    v >>= 7;
+    if (v) {
+      out[n++] = b | 0x80;
+    } else {
+      out[n++] = b;
+      return n;
+    }
+  }
+}
+
+// python-bytes comparison of two encoded varints (zigzagged values):
+// lexicographic, shorter-prefix-first
+inline bool varint_bytes_less(uint64_t za, uint64_t zb) {
+  uint8_t a[10], b[10];
+  int la = write_varint(za, a), lb = write_varint(zb, b);
+  int m = la < lb ? la : lb;
+  int c = std::memcmp(a, b, static_cast<size_t>(m));
+  if (c) return c < 0;
+  return la < lb;
+}
+
+// repr-string (decimal) comparison of two non-negative ints —
+// vclock.py's ClockKey pair order
+inline bool decimal_repr_less(uint64_t a, uint64_t b) {
+  char sa[24], sb[24];
+  int la = std::snprintf(sa, sizeof(sa), "%llu",
+                         static_cast<unsigned long long>(a));
+  int lb = std::snprintf(sb, sizeof(sb), "%llu",
+                         static_cast<unsigned long long>(b));
+  int m = la < lb ? la : lb;
+  int c = std::memcmp(sa, sb, static_cast<size_t>(m));
+  if (c) return c < 0;
+  return la < lb;
+}
+
+// emit one vclock BODY (uv n + sorted pairs) from a dense counter row.
+// ``sorted=false`` skips the order work — the SIZE of the body is
+// order-invariant, so the counting pass never pays for sorts.
+template <typename C>
+void emit_clock_body(Emitter& e, const C* row, int64_t A,
+                     std::vector<int64_t>& idx, bool sorted = true) {
+  idx.clear();
+  for (int64_t a = 0; a < A; ++a)
+    if (row[a]) idx.push_back(a);
+  // keys are 0x03 + varint(2a): shared tag, so encoded-bytes order is
+  // the varint-bytes order of 2a
+  if (sorted)
+    std::sort(idx.begin(), idx.end(), [](int64_t x, int64_t y) {
+      return varint_bytes_less(static_cast<uint64_t>(x) << 1,
+                               static_cast<uint64_t>(y) << 1);
+    });
+  e.uv(static_cast<uint64_t>(idx.size()));
+  for (int64_t a : idx) {
+    e.tagged_nonneg(static_cast<uint64_t>(a));
+    e.tagged_nonneg(static_cast<uint64_t>(row[a]));
+  }
+}
+
+// the encoded clock-KEY tuple for a deferred group (0x08 uv k + pairs
+// as 2-tuples, pair order = decimal repr of the actor)
+template <typename C>
+void emit_clock_key(Emitter& e, const C* row, int64_t A,
+                    std::vector<int64_t>& idx, bool sorted = true) {
+  idx.clear();
+  for (int64_t a = 0; a < A; ++a)
+    if (row[a]) idx.push_back(a);
+  if (sorted)
+    std::sort(idx.begin(), idx.end(), [](int64_t x, int64_t y) {
+      return decimal_repr_less(static_cast<uint64_t>(x),
+                               static_cast<uint64_t>(y));
+    });
+  e.byte(kTagTuple);
+  e.uv(static_cast<uint64_t>(idx.size()));
+  for (int64_t a : idx) {
+    e.byte(kTagTuple);
+    e.uv(2);
+    e.tagged_nonneg(static_cast<uint64_t>(a));
+    e.tagged_nonneg(static_cast<uint64_t>(row[a]));
+  }
+}
+
+// deferred section on egress: group live
+// rows by identical clock rows; each group is (encoded clock key,
+// sorted member blobs); groups sort by the encoded clock-key bytes.
+// D is small (a handful of rows), so the quadratic grouping is free.
+template <typename C>
+void emit_deferred_section(Emitter& e, const int32_t* d_ids,
+                           const C* d_clocks, int64_t A, int64_t D,
+                           std::vector<int64_t>& scratch, bool sizing) {
+  std::vector<int64_t> rows;
+  for (int64_t r = 0; r < D; ++r)
+    if (d_ids[r] != kEmpty) rows.push_back(r);
+  std::vector<char> used(rows.size(), 0);
+  struct Group {
+    const C* crow;                   // the witnessing clock's dense row
+    std::vector<uint8_t> key;        // encoded clock-key tuple (write pass)
+    std::vector<int64_t> members;    // member values, deduped
+  };
+  std::vector<Group> groups;
+  for (size_t i = 0; i < rows.size(); ++i) {
+    if (used[i]) continue;
+    Group g;
+    g.crow = d_clocks + rows[i] * A;
+    g.members.push_back(d_ids[rows[i]]);
+    for (size_t j = i + 1; j < rows.size(); ++j) {
+      if (used[j]) continue;
+      const C* orow = d_clocks + rows[j] * A;
+      bool same = true;
+      for (int64_t a = 0; a < A; ++a)
+        if (g.crow[a] != orow[a]) {
+          same = false;
+          break;
+        }
+      if (same) {
+        used[j] = 1;
+        g.members.push_back(d_ids[rows[j]]);
+      }
+    }
+    // python set() deduplicates members buffered under one clock (dense
+    // rows never legitimately repeat a (clock, member) pair, but match
+    // to_binary on any input); dedup changes the SIZE, so both passes
+    // run it — the sort is its implementation, members lists are tiny
+    std::sort(g.members.begin(), g.members.end(), [](int64_t x, int64_t y) {
+      return varint_bytes_less(static_cast<uint64_t>(x) << 1,
+                               static_cast<uint64_t>(y) << 1);
+    });
+    g.members.erase(std::unique(g.members.begin(), g.members.end()),
+                    g.members.end());
+    if (!sizing) {
+      // stage the encoded clock key for the cross-group sort
+      Emitter cnt{nullptr};
+      emit_clock_key(cnt, g.crow, A, scratch);
+      g.key.resize(static_cast<size_t>(cnt.count));
+      Emitter w{g.key.data()};
+      emit_clock_key(w, g.crow, A, scratch);
+    }
+    groups.push_back(std::move(g));
+  }
+  if (!sizing)
+    std::sort(groups.begin(), groups.end(),
+              [](const Group& x, const Group& y) {
+                size_t m = x.key.size() < y.key.size() ? x.key.size()
+                                                       : y.key.size();
+                int c = std::memcmp(x.key.data(), y.key.data(), m);
+                if (c) return c < 0;
+                return x.key.size() < y.key.size();
+              });
+  e.uv(static_cast<uint64_t>(groups.size()));
+  for (const Group& g : groups) {
+    if (sizing) {
+      emit_clock_key(e, g.crow, A, scratch, false);
+    } else {
+      for (uint8_t b : g.key) e.byte(b);
+    }
+    e.uv(static_cast<uint64_t>(g.members.size()));
+    for (int64_t m : g.members)
+      e.tagged_nonneg(static_cast<uint64_t>(static_cast<uint32_t>(m)));
+  }
+}
+
+template <typename C>
+int64_t encode_one(const C* clock, const int32_t* ids, const C* dots,
+                   const int32_t* d_ids, const C* d_clocks, int64_t A,
+                   int64_t M, int64_t D, uint8_t* out) {
+  // out == nullptr is the counting pass: every blob's SIZE is
+  // order-invariant, so the sorts (and group-key staging buffers) are
+  // skipped there — the write pass alone pays for ordering
+  const bool sizing = (out == nullptr);
+  Emitter e{out};
+  std::vector<int64_t> scratch;
+  e.byte(kTagOrswot);
+  emit_clock_body(e, clock, A, scratch, !sizing);
+
+  // entries: member keys sorted by encoded bytes (0x03 + varint(2m))
+  std::vector<int64_t> slots;
+  for (int64_t s = 0; s < M; ++s)
+    if (ids[s] != kEmpty) slots.push_back(s);
+  if (!sizing)
+    std::sort(slots.begin(), slots.end(), [&](int64_t x, int64_t y) {
+      return varint_bytes_less(
+          static_cast<uint64_t>(static_cast<uint32_t>(ids[x])) << 1,
+          static_cast<uint64_t>(static_cast<uint32_t>(ids[y])) << 1);
+    });
+  e.uv(static_cast<uint64_t>(slots.size()));
+  for (int64_t s : slots) {
+    e.tagged_nonneg(static_cast<uint64_t>(static_cast<uint32_t>(ids[s])));
+    e.byte(kTagVClock);
+    emit_clock_body(e, dots + s * A, A, scratch, !sizing);
+  }
+
+  // deferred section
+  emit_deferred_section(e, d_ids, d_clocks, A, D, scratch, sizing);
+  return e.count;
+}
+
+template <typename C>
+void encode_impl(const C* clock, const int32_t* ids, const C* dots,
+                 const int32_t* d_ids, const C* d_clocks, int64_t n,
+                 int64_t A, int64_t M, int64_t D, int64_t* offsets,
+                 uint8_t* buf, int nt) {
+  if (buf == nullptr) {
+    // pass 1: per-object sizes into offsets[1..n] (caller prefix-sums)
+    parallel_for(n, nt, [&](int64_t i) {
+      offsets[i + 1] = encode_one<C>(clock + i * A, ids + i * M,
+                                     dots + i * M * A, d_ids + i * D,
+                                     d_clocks + i * D * A, A, M, D, nullptr);
+    });
+    return;
+  }
+  parallel_for(n, nt, [&](int64_t i) {
+    encode_one<C>(clock + i * A, ids + i * M, dots + i * M * A,
+                  d_ids + i * D, d_clocks + i * D * A, A, M, D,
+                  buf + offsets[i]);
+  });
+}
+
+// the indexed encode: only the fleet rows named by ``rows``, straight
+// from the full planes (byte-identical to gathering the rows and calling
+// encode_impl, without the gather copy).  Same two-pass contract.
+template <typename C>
+void encode_rows_impl(const C* clock, const int32_t* ids, const C* dots,
+                      const int32_t* d_ids, const C* d_clocks,
+                      const int64_t* rows, int64_t k, int64_t A, int64_t M,
+                      int64_t D, int64_t* offsets, uint8_t* buf, int nt) {
+  if (buf == nullptr) {
+    parallel_for(k, nt, [&](int64_t i) {
+      const int64_t r = rows[i];
+      offsets[i + 1] = encode_one<C>(clock + r * A, ids + r * M,
+                                     dots + r * M * A, d_ids + r * D,
+                                     d_clocks + r * D * A, A, M, D, nullptr);
+    });
+    return;
+  }
+  parallel_for(k, nt, [&](int64_t i) {
+    const int64_t r = rows[i];
+    encode_one<C>(clock + r * A, ids + r * M, dots + r * M * A,
+                  d_ids + r * D, d_clocks + r * D * A, A, M, D,
+                  buf + offsets[i]);
+  });
+}
+
+int team(int64_t threads) {
+  if (threads > 0) return static_cast<int>(threads);
+  const unsigned hw = std::thread::hardware_concurrency();
+  return hw ? static_cast<int>(hw) : 1;
+}
+
+}  // namespace
+
+extern "C" {
+
+int64_t orswot_ingest_wire_u32(const uint8_t* buf, const int64_t* offsets,
+                               int64_t n, int64_t A, int64_t M, int64_t D,
+                               uint32_t* clock, int32_t* ids, uint32_t* dots,
+                               int32_t* d_ids, uint32_t* d_clocks,
+                               uint8_t* status, int64_t clear,
+                               int64_t threads) {
+  return ingest_impl<uint32_t>(buf, offsets, n, A, M, D, clock, ids, dots,
+                               d_ids, d_clocks, status, clear, team(threads));
+}
+
+int64_t orswot_ingest_wire_u64(const uint8_t* buf, const int64_t* offsets,
+                               int64_t n, int64_t A, int64_t M, int64_t D,
+                               uint64_t* clock, int32_t* ids, uint64_t* dots,
+                               int32_t* d_ids, uint64_t* d_clocks,
+                               uint8_t* status, int64_t clear,
+                               int64_t threads) {
+  return ingest_impl<uint64_t>(buf, offsets, n, A, M, D, clock, ids, dots,
+                               d_ids, d_clocks, status, clear, team(threads));
+}
+
+// two passes: buf == nullptr writes each blob's size to offsets[1..n]
+// (the caller prefix-sums them); then buf receives blob i at offsets[i]
+void orswot_encode_wire_u32(const uint32_t* clock, const int32_t* ids,
+                            const uint32_t* dots, const int32_t* d_ids,
+                            const uint32_t* d_clocks, int64_t n, int64_t A,
+                            int64_t M, int64_t D, int64_t* offsets,
+                            uint8_t* buf, int64_t threads) {
+  encode_impl<uint32_t>(clock, ids, dots, d_ids, d_clocks, n, A, M, D,
+                        offsets, buf, team(threads));
+}
+
+void orswot_encode_wire_u64(const uint64_t* clock, const int32_t* ids,
+                            const uint64_t* dots, const int32_t* d_ids,
+                            const uint64_t* d_clocks, int64_t n, int64_t A,
+                            int64_t M, int64_t D, int64_t* offsets,
+                            uint8_t* buf, int64_t threads) {
+  encode_impl<uint64_t>(clock, ids, dots, d_ids, d_clocks, n, A, M, D,
+                        offsets, buf, team(threads));
+}
+
+void orswot_encode_wire_rows_u32(const uint32_t* clock, const int32_t* ids,
+                                 const uint32_t* dots, const int32_t* d_ids,
+                                 const uint32_t* d_clocks,
+                                 const int64_t* rows, int64_t k, int64_t A,
+                                 int64_t M, int64_t D, int64_t* offsets,
+                                 uint8_t* buf, int64_t threads) {
+  encode_rows_impl<uint32_t>(clock, ids, dots, d_ids, d_clocks, rows, k, A,
+                             M, D, offsets, buf, team(threads));
+}
+
+void orswot_encode_wire_rows_u64(const uint64_t* clock, const int32_t* ids,
+                                 const uint64_t* dots, const int32_t* d_ids,
+                                 const uint64_t* d_clocks,
+                                 const int64_t* rows, int64_t k, int64_t A,
+                                 int64_t M, int64_t D, int64_t* offsets,
+                                 uint8_t* buf, int64_t threads) {
+  encode_rows_impl<uint64_t>(clock, ids, dots, d_ids, d_clocks, rows, k, A,
+                             M, D, offsets, buf, team(threads));
+}
+
+}  // extern "C"

@@ -269,3 +269,60 @@ def test_build_failure_raises(dev, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR / "missing-nvcc-probe")
     with pytest.raises(KernelError, match="nvcc"):
         _build.build_all(["orswot_merge"])
+
+
+def test_wire_loop_on_the_card_equals_the_loop_on_the_cpu(dev):
+    """PipelinedWireLoop on the card (parse thread, copy stream, K2, D2H,
+    encode) gives the same blobs as on the CPU (merge_reference), over
+    two rounds through one instance, overlapped and serial."""
+    from crdt_tpu_torch import CrdtConfig, OrswotBatch, PipelinedWireLoop, Universe
+
+    uni = Universe.identity(CrdtConfig.gpu_default(num_actors=64, member_capacity=16,
+                                                   deferred_capacity=2))
+    rounds = []
+    for seed in (21, 22):
+        reps = anti_entropy_fleets(np.random.RandomState(seed), 517, 64, 16, 2, 5, base=6,
+                                   novel=1, deferred_frac=0.25)
+        rounds.append([OrswotBatch.from_numpy(*r, device="cpu").to_wire(uni) for r in reps])
+    want = PipelinedWireLoop(uni, device="cpu").run(rounds)["out_blobs"]
+    loop = PipelinedWireLoop(uni, device=dev)
+    for overlap in (True, False):
+        before = _build.launch_counts()["orswot_merge"]
+        res = loop.run(rounds, overlap=overlap)
+        assert _build.launch_counts()["orswot_merge"] - before == 2 * 5
+        assert res["fold_path"] == "k2"
+        assert res["ingest_native_fraction"] == res["egress_native_fraction"] == 1.0
+        assert res["out_blobs"] == want
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_wire_loop_overflow_on_the_card_raises_and_the_loop_recovers(dev, overlap):
+    """Two replicas of M members each outgrow the member capacity: the
+    overflow flags ORed on the card raise ``CapacityOverflowError`` at the
+    round's check, and the same loop then folds good fleets as the loop
+    on the CPU does (the cut-short round's merges ended before the next
+    run copies into the device twins)."""
+    from crdt_tpu_torch import (
+        CapacityOverflowError, CrdtConfig, OrswotBatch, PipelinedWireLoop, Universe,
+    )
+    from crdt_tpu_torch.scalar.orswot import Orswot
+    from crdt_tpu_torch.utils.serde import to_binary
+
+    m = 8
+    uni = Universe.identity(CrdtConfig.gpu_default(num_actors=16, member_capacity=m,
+                                                   deferred_capacity=2))
+    bad = []
+    for r in range(2):
+        s = Orswot()
+        for k in range(m):
+            s.apply(s.add(100 * r + k, s.value().derive_add_ctx(r)))
+        bad.append([to_binary(s)] * 1500)
+    reps = anti_entropy_fleets(np.random.RandomState(23), 1500, 16, m, 2, 3, base=4, novel=1,
+                               deferred_frac=0.25)
+    good = [OrswotBatch.from_numpy(*r, device="cpu").to_wire(uni) for r in reps]
+    want = PipelinedWireLoop(uni, device="cpu").run([good])["out_blobs"]
+    loop = PipelinedWireLoop(uni, device=dev)
+    assert loop.fold_path == "k2"
+    with pytest.raises(CapacityOverflowError, match="member_capacity"):
+        loop.run([bad, good], overlap=overlap)
+    assert loop.run([good], overlap=overlap)["out_blobs"] == want
