@@ -43,8 +43,23 @@ Phases, in order; any failure ends the run with a nonzero exit:
    raise ``WireFormatError``.  At least 2 chunks, and all 20 while their
    encoding stays inside its time budget.
 
+6b. wire routes — one chunk of those fleets through ``from_wire`` and
+   ``to_scalar`` by both routes (dense planes, or COO columns expanded
+   and compacted on the card), timed, with the bytes each copies to the
+   card; both must give the blobs back, and the COO planes must equal the
+   dense planes' self-merge (ascending-id slots);
+7. op path — a 1.25M-object fleet (A=64, M=16, D=2, u32) built on the
+   card and self-merged; 32 frames of 65,536 ops (~90% adds, ~10%
+   removes, some ahead of the clock, one frame early) folded by
+   ``PipelinedOpLoop`` overlapped, serial, serial, overlapped, and once
+   profiled.  Both self-merges must equal the plain merge, every run must
+   give the same planes, re-delivering every frame must change nothing,
+   2,048 sampled objects must equal the scalar engine applying the same
+   ops in causal order, and ``from_coo(to_coo(x))`` must equal ``x``;
+   then the device times of the op path's torch bodies and their bounds.
+
 Launch counts are reset just before phase 4 and read just after, and
-again around phases 5 and 6.  The last lines are the kernel table
+again around phases 5, 6, 6b and 7.  The last lines are the kernel table
 (JSON), the card's name and power limit, and ``{"ok": true, "device":
 ...}``.  Needs one CUDA card; exits nonzero without one.
 """
@@ -70,6 +85,9 @@ WIRE_MIN_CHUNKS, WIRE_PREP_S, WIRE_SAMPLE, WIRE_ROUNDS = 2, 75.0, 64, 2
 WIRE_RUNS = (("overlapped", True, "all"), ("serial", False, "all"),
              ("overlapped, half team", True, "half"), ("serial", False, "all"),
              ("overlapped", True, "all"))
+# the op path (phase 7): frames of ops, the frame delivered early, the sample
+OP_FRAMES, OP_FRAME_OPS, OP_SWAP, OP_SAMPLE = 32, 65_536, 10, 2048
+PLANES = ("clock", "ids", "dots", "d_ids", "d_clocks")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 # the data sheet gives no INT32 rate: 64 INT32 lanes x 132 SMs x 1.98 GHz
 INT32_OPS_PER_S = 16.7e12
@@ -138,6 +156,22 @@ def max_abs_err(got, want) -> int:
         if g.numel():
             err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
     return err
+
+
+def rows_of(x, dev):
+    """Host row indices → an int64 index tensor on ``dev``."""
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int64)).to(dev)
+
+
+def same_planes(got, want, what: str):
+    """Raise unless every plane of batch ``got`` equals ``want``'s."""
+    import torch
+
+    for name in PLANES:
+        if not torch.equal(getattr(got, name), getattr(want, name)):
+            raise AssertionError(f"{what}: {name} differs")
 
 
 def to_dev(planes, dev):
@@ -646,7 +680,8 @@ def regrow_ladder(dev):
 
 def wire_leg(dev, card: str):
     """Blobs → fold on the card → blobs over the north-star chunks; returns
-    the merge kernel's launches by the wire loop.
+    the merge kernel's launches by the wire loop and the first chunk's R
+    blob lists.
 
     First each chunk's R fleets are built on the device and encoded by
     ``to_wire`` (the encoder under test), beside the byte oracle:
@@ -708,11 +743,9 @@ def wire_leg(dev, card: str):
                 raise AssertionError(f"chunk {c}: object {i}: the scalar fold != "
                                      "to_wire(union-aligned fold)")
         # round trip through the codec, plane for plane
-        x = OrswotBatch.from_wire(want, uni, device=dev)
-        y = OrswotBatch.from_wire(x.to_wire(uni), uni, device=dev)
-        for name in ("clock", "ids", "dots", "d_ids", "d_clocks"):
-            if not torch.equal(getattr(x, name), getattr(y, name)):
-                raise AssertionError(f"chunk {c}: from_wire(to_wire(x)).{name} != x.{name}")
+        x = OrswotBatch.from_wire(want, uni, device=dev, via_device=False)
+        y = OrswotBatch.from_wire(x.to_wire(uni), uni, device=dev, via_device=False)
+        same_planes(y, x, f"chunk {c}: from_wire(to_wire(x)) against x")
         del x, y
         torch.cuda.empty_cache()
         fleets.append(rep_blobs)
@@ -788,14 +821,20 @@ def wire_leg(dev, card: str):
         log(f"  loop {label}: per round of a chunk (mean of {n_rounds} rounds) "
             + ", ".join(f"{k} {v:.4f} s" for k, v in per.items())
             + f"; {CHUNK * R / per['e2e'] / 1e6:.3f}M merges/s end to end [{card}]")
-    return k2_launches
+    return k2_launches, fleets[0]
 
 
 def profile_loop(loop, rep_blobs, card: str):
     """One more run of the loop under ``torch.profiler``: the device time of
-    its kernels and of its copies against the run's wall time.  A
-    measurement only: a profiler that sees no device time is logged, not
-    fatal."""
+    its kernels and of its copies against the run's wall time."""
+    profiled(lambda: loop.run([rep_blobs] * WIRE_ROUNDS, overlap=True),
+             f"{WIRE_ROUNDS} rounds of one chunk, overlapped", card)
+
+
+def profiled(run, label: str, card: str):
+    """``run()`` under ``torch.profiler``: the device time of its kernels
+    and of its copies against its wall time.  A measurement only: a
+    profiler that sees no device time is logged, not fatal."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -803,7 +842,7 @@ def profile_loop(loop, rep_blobs, card: str):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        loop.run([rep_blobs] * WIRE_ROUNDS, overlap=True)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side events only: a host op (aten::copy_) also reports the
@@ -816,12 +855,261 @@ def profile_loop(loop, rep_blobs, card: str):
     if not rows:
         log("  profiler: no device time recorded (not measured)")
         return
-    log(f"  profiler ({WIRE_ROUNDS} rounds of one chunk, overlapped): wall {wall:.4f} s, device "
+    log(f"  profiler ({label}): wall {wall:.4f} s, device "
         f"kernels {kernels / 1e6:.4f} s ({kernels / 1e6 / wall:.2%} of wall), copies "
         f"{copies / 1e6:.4f} s ({copies / 1e6 / wall:.2%}); SMs idle "
         f"{1 - kernels / 1e6 / wall:.2%} of the wall time [{card}]")
     for key, t, count in rows[:8]:
         log(f"    {t / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+
+
+# -- phase 6b ------------------------------------------------------------------
+
+
+def wire_routes(dev, card: str, rep_blobs):
+    """``from_wire`` and ``to_scalar`` by both routes on one chunk of the
+    wire leg's fleets: dense planes copied whole, or COO columns that the
+    card expands (``via_device=True``, the JAX package's route on an
+    accelerator) and compacts."""
+    import torch
+
+    from crdt_tpu_torch import CrdtConfig, OrswotBatch, Universe
+    from crdt_tpu_torch.dtypes import h2d_bytes
+    from crdt_tpu_torch.utils.serde import to_binary
+
+    uni = Universe.identity(CrdtConfig.gpu_default(
+        num_actors=A, member_capacity=M, deferred_capacity=D))
+    blobs = rep_blobs[0]  # replica 0 holds the planted deferred rows
+    batches = {}
+    for via in (False, True):
+        torch.cuda.synchronize()
+        b0, t0 = h2d_bytes(), time.perf_counter()
+        batches[via] = OrswotBatch.from_wire(blobs, uni, device=dev, via_device=via)
+        torch.cuda.synchronize()
+        log(f"  from_wire(via_device={via}): {time.perf_counter() - t0:.4f} s, "
+            f"{h2d_bytes() - b0} B host->device for {len(blobs)} objects "
+            f"({sum(len(b) for b in blobs)} B of blobs) [{card}]")
+    for via, batch in batches.items():
+        if batch.to_wire(uni) != blobs:
+            raise AssertionError(f"to_wire(from_wire(blobs, via_device={via})) != blobs")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states = batch.to_scalar(uni, via_device=via)
+        log(f"  to_scalar(via_device={via}): {time.perf_counter() - t0:.4f} s [{card}]")
+        if [to_binary(x) for x in states] != blobs:
+            raise AssertionError(f"to_binary(to_scalar(via_device={via})) != blobs")
+    # replica 1 has no deferred rows, so its states are fixpoints of the
+    # merge and the self-merge only puts member slots in ascending-id order
+    dense = OrswotBatch.from_wire(rep_blobs[1], uni, device=dev, via_device=False)
+    coo = OrswotBatch.from_wire(rep_blobs[1], uni, device=dev, via_device=True)
+    same_planes(coo, dense.merge(dense), "from_wire(via_device=True) against the dense "
+                "route's self-merge")
+    log(f"  both routes: to_wire byte-equal to the blobs, to_scalar equal to them too; the "
+        f"COO route's planes == the dense route's K2 self-merge ({CHUNK} objects)")
+
+
+# -- phase 7 -------------------------------------------------------------------
+
+
+def op_traffic(fleet, rng):
+    """``OP_FRAMES`` frames of ``OP_FRAME_OPS`` ops against ``fleet``,
+    minted in causal order: ~90% adds (objects and actors uniform, 70% of
+    members already present; dots from ``derive_add_ctx``), ~10% removes
+    of a live member (``derive_rm_ctx``, 2% one dot ahead) on objects with
+    no deferred row, 5% of those objects removed twice (a second round;
+    deferral stays within D=2).  Returns ``(frames, [(adds, removes)])``;
+    frame ``OP_SWAP + 1`` is delivered before its predecessor."""
+    from crdt_tpu_torch.dtypes import as_counters
+    from crdt_tpu_torch.oplog import OpBatch, derive_add_ctx, derive_rm_ctx, encode_ops_frame
+
+    n, clock = fleet.clock.shape[0], fleet.clock.clone()
+    ids = fleet.ids.cpu().numpy()  # canonical: live slots first
+    live = (ids != -1).sum(axis=1)
+    free = (fleet.d_ids == -1).all(dim=1).cpu().numpy() & (live >= 2)
+    pool = rng.permutation(np.nonzero(free)[0])
+    n_rm = OP_FRAME_OPS // 10
+    n_add, n_twice = OP_FRAME_OPS - n_rm, n_rm // 20
+    n_once = n_rm - n_twice
+    frames, causal = [], []
+    for f in range(OP_FRAMES):
+        obj, actor = rng.randint(0, n, n_add), rng.randint(0, A, n_add)
+        known = (rng.rand(n_add) < 0.7) & (live[obj] > 0)
+        slot = (rng.rand(n_add) * live[obj]).astype(np.int64)
+        member = np.where(known, ids[obj, slot], rng.randint(1 << 24, (1 << 24) + (1 << 20), n_add))
+        adds, _ = derive_add_ctx(clock, obj, actor, member=member)
+        clock.view(-1).scatter_reduce_(0, rows_of(adds.obj * A + adds.actor, clock.device),
+                                       as_counters(adds.counter, clock.dtype, clock.device), "amax")
+        robj = pool[f * n_once:(f + 1) * n_once]
+        robj = np.concatenate([robj, robj[:n_twice]])
+        j = (rng.rand(robj.shape[0]) * live[robj]).astype(np.int64)
+        j[n_once:] = (j[:n_twice] + 1) % live[robj[:n_twice]]  # another member
+        rms = derive_rm_ctx(clock, robj, ids[robj, j])
+        ahead = np.nonzero(rng.rand(robj.shape[0]) < 0.02)[0]
+        rms.rm_clocks[ahead, rng.randint(0, A, ahead.shape[0])] += 1
+        causal.append((adds, rms))
+        frames.append(encode_ops_frame(OpBatch.concat([adds, rms])))
+    frames[OP_SWAP], frames[OP_SWAP + 1] = frames[OP_SWAP + 1], frames[OP_SWAP]
+    return frames, causal
+
+
+def scalar_oracle(fleet, causal, sample, uni):
+    """The sampled objects' states by the port's scalar engine: their
+    initial states, then each op on them, one at a time, in causal order."""
+    from crdt_tpu_torch import OrswotBatch
+    from crdt_tpu_torch.scalar.orswot import Add, Rm
+    from crdt_tpu_torch.scalar.vclock import Dot, VClock
+
+    rows = rows_of(sample, fleet.device)
+    states = OrswotBatch(*(getattr(fleet, k)[rows] for k in PLANES)).to_scalar(uni)
+    where = {int(o): k for k, o in enumerate(sample)}
+    for adds, rms in causal:
+        for r in np.nonzero(np.isin(adds.obj, sample))[0].tolist():
+            dot = Dot(int(adds.actor[r]), int(adds.counter[r]))
+            states[where[int(adds.obj[r])]].apply(Add(dot=dot, member=int(adds.member[r])))
+        for r in np.nonzero(np.isin(rms.obj, sample))[0].tolist():
+            clock = VClock({a: int(v) for a, v in enumerate(rms.rm_clocks[r]) if v})
+            states[where[int(rms.obj[r])]].apply(Rm(clock=clock, member=int(rms.member[r])))
+    return states
+
+
+def check_self_merge(src, out, what: str):
+    """``out = src.merge(src)``, the merge kernel's full-size output,
+    against the plain merge of the same rows, ``CHUNK`` objects at a time
+    (the merge is row-independent); any difference fails."""
+    from crdt_tpu_torch.ops import orswot_tile as tile
+
+    n = src.clock.shape[0]
+    for s in range(0, n, CHUNK):
+        rows = tuple(getattr(src, k)[s:s + CHUNK] for k in PLANES)
+        want = tile.merge_reference(*rows, *rows, M, D)
+        got = tuple(getattr(out, k)[s:s + CHUNK] for k in PLANES)
+        if bool(want[5].any()) or max_abs_err(got, want[:5]):
+            raise AssertionError(f"{what}: the merge kernel != its plain version at objects {s}+")
+    log(f"  {what}: the merge kernel's [{n}, ...] output == its plain version, bit for bit")
+
+
+def op_bodies(fleet, causal, card: str):
+    """Device times (CUDA events) of the op path's plain-torch bodies on
+    frame 0's ops at the fleet's size, beside their bytes bound."""
+    import torch
+
+    from crdt_tpu_torch.dtypes import as_counters, zero_of
+    from crdt_tpu_torch.ops import orswot_ops
+    from crdt_tpu_torch.oplog.apply import _scatter_max
+    from crdt_tpu_torch.oplog.records import _derive_body
+
+    dev, dt = fleet.device, fleet.clock.dtype
+    (adds, rms), planes = causal[0], tuple(getattr(fleet, k) for k in PLANES)
+    obj, actor, cnt = rows_of(adds.obj, dev), rows_of(adds.actor, dev), as_counters(adds.counter, dt, dev)
+    member = torch.full((fleet.clock.shape[0],), -2, dtype=torch.int32, device=dev)
+    member[rows_of(rms.obj, dev)] = torch.from_numpy(rms.member).to(dev)
+    rm_clock = torch.full_like(fleet.clock, zero_of(dt))
+    rm_clock[rows_of(rms.obj, dev)] = as_counters(rms.rm_clocks, dt, dev)
+    rest = nbytes(planes[1:])  # the planes a whole-fleet body reads and writes
+    for name, fn, moved in (
+        ("derive_add_ctx (sort, [B, A] cumsum, gathers)",
+         lambda: _derive_body(fleet.clock, obj, actor), obj.numel() * (16 + 8 * A)),
+        ("scatter-max of the adds (clock, dots; slot 0)",
+         lambda: (_scatter_max(fleet.clock, obj * A + actor, cnt),
+                  _scatter_max(fleet.dots, obj * (M * A) + actor, cnt)),
+         2 * nbytes((fleet.clock, fleet.dots))),
+        ("deferred replay (_apply_deferred, whole fleet)",
+         lambda: orswot_ops._apply_deferred(*planes), nbytes(planes) + rest),
+        ("remove round (apply_remove, whole fleet)",
+         lambda: orswot_ops.apply_remove(*planes, rm_clock, member),
+         nbytes(planes) + rest + nbytes((rm_clock, member))),
+    ):
+        ms = cuda_ms(fn, 5)
+        log(f"  {name}: {ms:.3f} ms, bound {moved / HBM_BYTES_PER_S * 1e3:.3f} ms "
+            f"(bytes, {moved} B) [{card}]")
+
+
+def op_path(dev, card: str):
+    """The op-based write path at full width: op frames folded into a
+    1.25M-object fleet through ``PipelinedOpLoop`` (O S S O from the same
+    fleet), one profiled run, re-delivery, the scalar engine on a sample,
+    a ``to_coo``/``from_coo`` round trip, and both self-merges against
+    the plain merge.  Returns the merge kernel's launches of the phase."""
+    import torch
+
+    from crdt_tpu_torch import CrdtConfig, OrswotBatch, PipelinedOpLoop, Universe, _build
+    from crdt_tpu_torch.utils.serde import to_binary
+    from crdt_tpu_torch.utils.testdata import build_fleet_planes, fleet_columns
+
+    rng = np.random.RandomState(SEED + 7)
+    uni = Universe.identity(CrdtConfig.gpu_default(
+        num_actors=A, member_capacity=M, deferred_capacity=D))
+    t0 = time.perf_counter()
+    cols = fleet_columns(rng, N_TOTAL, A, M, D, 1, base=BASE, novel=NOVEL,
+                         deferred_frac=DEFERRED_FRAC)
+    built = OrswotBatch(*(x[0] for x in build_fleet_planes(
+        cols, a=A, m_cap=M, d=D, base=BASE, novel=NOVEL, device=dev)))
+    fleet = built.merge(built)  # canonical: ascending-id slots, deferred replayed
+    if _build.launch_counts()["orswot_merge"] == 0:
+        raise AssertionError("the fleet's self-merge did not launch the merge kernel")
+    torch.cuda.synchronize()
+    log(f"  fleet: {N_TOTAL} objects, {nbytes([getattr(fleet, k) for k in PLANES]) / 1e9:.3f} GB "
+        f"of planes on the card, built and self-merged in {time.perf_counter() - t0:.1f} s")
+    check_self_merge(built, fleet, "the fleet's self-merge")
+    del built
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    frames, causal = op_traffic(fleet, rng)
+    n_ops = sum(len(a) + len(r) for a, r in causal)
+    log(f"  traffic: {len(frames)} frames, {n_ops} ops ({sum(len(r) for _, r in causal)} "
+        f"removes), {sum(map(len, frames)) / n_ops:.2f} wire B/op, frame {OP_SWAP + 1} "
+        f"before frame {OP_SWAP}; minted and encoded in {time.perf_counter() - t0:.1f} s")
+
+    final = None
+    for overlap in (True, False, False, True):  # each mode both before and after the other
+        loop = PipelinedOpLoop(uni)
+        torch.cuda.reset_peak_memory_stats()
+        out, st = loop.run(fleet, frames, overlap=overlap)
+        c = loop.applier.counts
+        log(f"  {st['pipeline']} run: {n_ops / st['e2e_s'] / 1e6:.3f}M ops/s end to end; {st}; "
+            f"applier {c}, {c['rm_rounds'] / len(frames):.2f} remove rounds per frame; peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
+        if st["applied"] != n_ops or st["still_parked"] or not 0 < c["parked"] == c["released"]:
+            raise AssertionError(f"op loop counts: {st}, {c}")
+        final = out if final is None else final
+        same_planes(out, final, f"{st['pipeline']} run against the first run")
+        del out
+    profiled(lambda: PipelinedOpLoop(uni).run(fleet, frames, overlap=True),
+             f"{len(frames)} op frames, overlapped", card)
+    again, st = PipelinedOpLoop(uni).run(final, frames)
+    same_planes(again, final, "re-delivering every frame")
+    if st["duplicates"] != sum(len(a) for a, _ in causal) or st["still_parked"]:
+        raise AssertionError(f"re-delivery applied adds again: {st}")
+    del again
+    log(f"  re-delivery of every frame: planes unchanged ({st['duplicates']} duplicate adds)")
+
+    touched = np.unique(np.concatenate([a.obj for a, _ in causal] + [r.obj for _, r in causal]))
+    sample = np.sort(rng.choice(touched, OP_SAMPLE, replace=False))
+    want = [to_binary(s) for s in scalar_oracle(fleet, causal, sample, uni)]
+    rows = rows_of(sample, dev)
+    got = OrswotBatch(*(getattr(final, k)[rows] for k in PLANES)).to_scalar(uni)
+    if [to_binary(s) for s in got] != want:
+        raise AssertionError("op loop != the scalar engine on the sampled objects")
+    log(f"  {OP_SAMPLE} sampled touched objects == the scalar engine applying the same ops "
+        "in causal order")
+
+    canon = final.merge(final)
+    check_self_merge(final, canon, "the final fleet's self-merge")
+    del final
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clock, dots, q, h = canon.to_coo()
+    t1 = time.perf_counter()
+    back = OrswotBatch.from_coo(N_TOTAL, uni, clock_coords=clock, dot_coords=dots,
+                                deferred_members=q, deferred_coords=h, device=dev)
+    torch.cuda.synchronize()
+    same_planes(back, canon, "from_coo(to_coo(x)) against x")
+    log(f"  to_coo -> from_coo of the self-merged final fleet: bit-equal; to_coo "
+        f"{t1 - t0:.4f} s, from_coo {time.perf_counter() - t1:.4f} s ({len(dots[0])} dot cells) "
+        f"[{card}]")
+    del back, canon
+    op_bodies(fleet, causal, card)
+    return _build.launch_counts()["orswot_merge"]
 
 
 def main() -> int:
@@ -905,17 +1193,37 @@ def main() -> int:
 
     log("== phase 6: wire leg (blobs -> fold on the card -> blobs)")
     _build.reset_launch_counts()
-    wire_k2 = wire_leg(dev, card)
+    wire_k2, chunk_blobs = wire_leg(dev, card)
     wire_launches = _build.launch_counts()
     log(f"  launches {wire_launches} (the merge kernel {wire_k2} by the wire loop; the "
         "union-aligned fold only as the byte oracle)")
     if wire_k2 == 0:
         raise AssertionError("the wire loop never launched the merge kernel")
+    torch.cuda.empty_cache()
+
+    log("== phase 6b: from_wire and to_scalar, dense planes against COO columns")
+    _build.reset_launch_counts()
+    wire_routes(dev, card, chunk_blobs)
+    log(f"  launches {_build.launch_counts()}")
+    if _build.launch_counts()["orswot_merge"] == 0:
+        raise AssertionError("phase 6b never launched the merge kernel")
+    del chunk_blobs
+    torch.cuda.empty_cache()
+
+    log(f"== phase 7: op path ({OP_FRAMES} frames of {OP_FRAME_OPS} ops into {N_TOTAL} "
+        f"objects, A={A} M={M} D={D})")
+    _build.reset_launch_counts()
+    op_k2 = op_path(dev, card)
+    log(f"  launches {_build.launch_counts()} (the merge kernel: the fleet's and the final "
+        "fleet's self-merges; the op bodies are torch ops)")
+    if op_k2 == 0:
+        raise AssertionError("the op path never launched the merge kernel")
 
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
          "wire_launches": wire_k2 if name == "orswot_merge" else 0,
+         "op_launches": op_k2 if name == "orswot_merge" else 0,
          "max_abs_err": worst[name], "ms": timed[name]["ms"],
          "plain_ms": timed[name]["plain_ms"], "bound_ms": timed[name]["bound_ms"],
          "bound_by": timed[name]["bound_by"], "library_ms": None}

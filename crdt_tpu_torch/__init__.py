@@ -3,9 +3,10 @@
 A second package beside the JAX reference (``crdt_tpu``): dense ORSWOT
 batches held on a CUDA device, the pairwise merge and the anti-entropy
 folds, hand-written CUDA kernels for the three hot paths (``csrc/``),
-and the wire leg — ``OrswotBatch.from_wire``/``to_wire`` through a host
+the wire leg — ``OrswotBatch.from_wire``/``to_wire`` through a host
 C++ codec (``native/``) and :class:`PipelinedWireLoop`, which folds wire
-blobs on the card.  The scalar engine (``scalar/``) and the serde codec
+blobs on the card — and the op path (``oplog/``, :class:`PipelinedOpLoop`):
+op frames folded into the planes on the card.  The scalar engine (``scalar/``) and the serde codec
 (``utils/serde.py``) are the port's own copies.  Entry points take
 ``device=`` and default to ``"cuda"``; pass ``device="cpu"`` to run the
 plain PyTorch versions.
@@ -22,9 +23,14 @@ Quick start::
     # wire blobs in, fold on the card, wire blobs out
     res = PipelinedWireLoop(uni).run([[fleet.to_wire(uni) for fleet in fleets]])
     blobs = res["out_blobs"]
+
+    # op frames in, folded into the fleet on the card
+    from crdt_tpu_torch.oplog import derive_add_ctx, encode_ops_frame
+    ops, _ = derive_add_ctx(fleet.clock, obj, actor, member=member)
+    fleet, stats = PipelinedOpLoop(uni).run(fleet, [encode_ops_frame(ops)])
 """
 
-from .batch import OrswotBatch, PipelinedWireLoop
+from .batch import OrswotBatch, PipelinedOpLoop, PipelinedWireLoop
 from .config import CrdtConfig, MERGE_IMPLS
 from .device import resolve_device
 from .error import (
@@ -32,6 +38,8 @@ from .error import (
     CrdtError,
     DeviceUnavailableError,
     KernelError,
+    OpLogOverflowError,
+    SyncProtocolError,
     WireFormatError,
 )
 from .parallel import JoinError, JoinExecutor, JoinStats, join_all
@@ -48,9 +56,12 @@ __all__ = [
     "JoinStats",
     "KernelError",
     "MERGE_IMPLS",
+    "OpLogOverflowError",
     "OrswotBatch",
+    "PipelinedOpLoop",
     "PipelinedWireLoop",
     "Registry",
+    "SyncProtocolError",
     "Universe",
     "WireFormatError",
     "join_all",

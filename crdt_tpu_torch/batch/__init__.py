@@ -1,6 +1,6 @@
-"""Dense CRDT batches on the device, and the wire loop that feeds them."""
+"""Dense CRDT batches on the device, and the loops that feed them."""
 
 from .orswot_batch import OrswotBatch
-from .wireloop import PipelinedWireLoop
+from .wireloop import PipelinedOpLoop, PipelinedWireLoop
 
-__all__ = ["OrswotBatch", "PipelinedWireLoop"]
+__all__ = ["OrswotBatch", "PipelinedOpLoop", "PipelinedWireLoop"]

@@ -31,6 +31,10 @@ kernel's plain version (``merge_reference``).  u64 fleets fold through
 the plain rank merge (the kernel is exact for 32-bit counters only).
 Per-stage wall times and the wire counts go into the returned dict; the
 loop declares no metrics.
+
+:class:`PipelinedOpLoop` is the op path's sibling: it decodes op frames
+on a thread one frame ahead of the fold (:class:`~crdt_tpu_torch.oplog.
+OpApplier`), through a bounded queue.
 """
 
 from __future__ import annotations
@@ -341,3 +345,102 @@ class PipelinedWireLoop:
             "ingest_native_fraction": wirebulk.native_fraction(deltas, "from_wire"),
             "egress_native_fraction": wirebulk.native_fraction(deltas, "to_wire"),
         }
+
+
+class PipelinedOpLoop:
+    """Pipelined op-frame ingest: decode op frames on a background thread
+    while the main thread folds the batches already decoded (the port of
+    the JAX package's ``PipelinedOpLoop``).  The decode queue holds at
+    most ``depth`` batches, so a slow fold holds the decoder back instead
+    of growing host memory."""
+
+    def __init__(self, universe, *, depth: int = 4):
+        from ..oplog.apply import OpApplier
+
+        if depth < 2:
+            raise ValueError("pipelining needs a decode queue depth >= 2")
+        self.universe = universe
+        self.applier = OpApplier(universe)
+        self.depth = depth
+
+    def run(self, batch, frames: Iterable[bytes], *, overlap: bool = True) -> tuple:
+        """Fold every op frame of ``frames`` into ``batch`` (decode, then
+        ``apply_ops``, per frame; with ``overlap`` the decode runs one
+        frame ahead on a thread).  Returns ``(folded_batch, stats)``,
+        ``stats = {"frames", "ops", "applied", "duplicates",
+        "still_parked", "pipeline", "stage_s": {parse, fold,
+        stall}, "e2e_s"}``: ``parse`` is the decode, ``fold`` the
+        ``apply_ops`` calls, ``stall`` the fold's waits on the decoder
+        (host clock); ``e2e_s`` ends after the device has finished."""
+        from ..oplog.wire import decode_ops_frame
+
+        frames = list(frames)
+        stage_s = {"parse": 0.0, "fold": 0.0, "stall": 0.0}
+        stats = {"frames": len(frames), "ops": 0, "applied": 0, "duplicates": 0}
+        t_all0 = time.perf_counter()
+        num_actors = self.universe.config.num_actors
+
+        def decode_one(frame):
+            t0 = time.perf_counter()
+            ops = decode_ops_frame(frame, num_actors=num_actors)
+            stage_s["parse"] += time.perf_counter() - t0
+            return ops
+
+        thread = None
+        if overlap:
+            parsed_q: "queue.Queue" = queue.Queue(maxsize=self.depth)
+            stop = threading.Event()
+
+            def worker():
+                try:
+                    for frame in frames:
+                        if stop.is_set():
+                            return
+                        parsed_q.put(decode_one(frame))
+                    parsed_q.put(_SENTINEL)
+                except BaseException as e:  # raised again in the main thread
+                    parsed_q.put(e)
+
+            def staged():
+                while True:
+                    t0 = time.perf_counter()
+                    item = parsed_q.get()
+                    stage_s["stall"] += time.perf_counter() - t0
+                    if item is _SENTINEL:
+                        return
+                    if isinstance(item, BaseException):
+                        raise item
+                    yield item
+
+            thread = threading.Thread(target=worker, daemon=True, name="oploop-decode")
+            thread.start()
+            stream = staged()
+        else:
+            stream = (decode_one(f) for f in frames)
+
+        try:
+            for ops in stream:
+                t0 = time.perf_counter()
+                batch, report = self.applier.apply_ops(batch, ops)
+                stage_s["fold"] += time.perf_counter() - t0
+                stats["ops"] += report.ops
+                stats["applied"] += report.applied
+                stats["duplicates"] += report.duplicates
+        finally:
+            if thread is not None:
+                # drain until the decoder has seen the stop flag, so that it
+                # never blocks on a full queue
+                stop.set()
+                while thread.is_alive():
+                    try:
+                        parsed_q.get(timeout=0.05)
+                    except queue.Empty:
+                        pass
+                thread.join()
+        if batch.device.type == "cuda":
+            torch.cuda.synchronize(batch.device)
+        stats["still_parked"] = len(self.applier.parked)
+        stats["pipeline"] = "overlapped" if overlap else "serial"
+        stats["stage_s"] = stage_s
+        stats["e2e_s"] = time.perf_counter() - t_all0
+        return batch, stats

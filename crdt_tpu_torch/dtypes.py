@@ -20,6 +20,8 @@ device after each host-to-device copy, unbiased before the copy back).
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -63,10 +65,37 @@ def unbias_np(x: np.ndarray) -> np.ndarray:
     return (x ^ signed(np.iinfo(signed).min)).view(unsigned)
 
 
+_H2D_LOCK = threading.Lock()
+_H2D_BYTES = [0]
+
+
 def to_device(x: np.ndarray, device) -> torch.Tensor:
     """Biased (or id) numpy plane → a contiguous tensor on ``device`` that
-    owns its memory (never a view of the caller's array)."""
-    return torch.tensor(np.ascontiguousarray(x), device=device)
+    owns its memory (never a view of the caller's array).  Bytes copied
+    to a CUDA device are counted (:func:`h2d_bytes`)."""
+    t = torch.tensor(np.ascontiguousarray(x), device=device)
+    if t.device.type == "cuda":
+        with _H2D_LOCK:
+            _H2D_BYTES[0] += t.numel() * t.element_size()
+    return t
+
+
+def h2d_bytes() -> int:
+    """Bytes that :func:`to_device` has copied to a CUDA device so far
+    (the batches' host-to-device copies: dense planes or COO columns)."""
+    with _H2D_LOCK:
+        return _H2D_BYTES[0]
+
+
+def as_counters(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """Counters for a plane of ``dtype`` on ``device``: a tensor is taken
+    as already biased; anything else as unsigned counters, cast to the
+    plane's width (wrapping, as numpy's ``astype``), biased and copied."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype != dtype:
+            raise TypeError(f"biased counters must be {dtype}, got {x.dtype}")
+        return x.to(device)
+    return to_device(bias_np(np.asarray(x).astype(_UNSIGNED[dtype])), device)
 
 
 def counters_to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -1,7 +1,8 @@
 """Error types of the port.
 
 Own copies of the JAX package's ``CrdtError``, ``ConflictingMarker``,
-``CapacityOverflowError``, ``WireFormatError`` and ``raise_for_overflow``
+``CapacityOverflowError``, ``WireFormatError``, ``OpLogOverflowError``,
+``SyncProtocolError`` and ``raise_for_overflow``
 (the port imports nothing of that package), plus the errors that only a
 GPU build has: a missing card, a kernel or the host codec that does not
 build, a launch that the CUDA runtime refuses.
@@ -44,6 +45,22 @@ class CapacityOverflowError(CrdtError, ValueError):
         super().__init__(message)
         self.member = member
         self.deferred = deferred
+
+
+class OpLogOverflowError(CrdtError):
+    """A bounded op-log structure ran out of room: the op log
+    (:class:`crdt_tpu_torch.oplog.OpLog`) hit its capacity, or the
+    causal-gap park buffer (:class:`crdt_tpu_torch.oplog.OpApplier`)
+    filled with adds whose predecessors never arrived.  Not a
+    ``ValueError``: the caller must drain or shed load; the op itself
+    was well formed."""
+
+
+class SyncProtocolError(CrdtError):
+    """A frame's envelope violated the protocol: version, type, length
+    or CRC (:mod:`crdt_tpu_torch.oplog.wire`).  Not a ``ValueError``: a
+    malformed peer frame is an I/O-boundary fault to drop, not a local
+    programming error."""
 
 
 class DeviceUnavailableError(CrdtError, RuntimeError):

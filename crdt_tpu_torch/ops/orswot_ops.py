@@ -469,3 +469,66 @@ def fold_merge_tree(
 def contains(ids, member_id):
     """Membership bitmap (`orswot.rs:214-224`)."""
     return (ids == member_id[..., None]).any(dim=-1)
+
+
+def apply_add(clock, ids, dots, dids, dclocks, actor_idx, counter, member_id):
+    """Batched ``Op::Add`` (`orswot.rs:66-79`), one add per object:
+    ``actor_idx``, ``counter`` (biased) and ``member_id`` are ``[...]``.
+    Returns the updated state and an overflow flag (no free member
+    slot)."""
+    actor = actor_idx.to(torch.int64)
+    seen = torch.gather(clock, -1, actor[..., None])[..., 0] >= counter
+    existing = ids == member_id[..., None]
+    has_slot = existing.any(dim=-1)
+    free = ids == EMPTY
+    has_free = free.any(dim=-1)
+    # argmax returns the first maximal index, as jnp.argmax does
+    slot = torch.where(has_slot, existing.to(torch.int8).argmax(dim=-1),
+                       free.to(torch.int8).argmax(dim=-1))
+    overflow = ~seen & ~has_slot & ~has_free
+
+    do = (~seen & (has_slot | has_free))[..., None]
+    put = do & (torch.arange(ids.shape[-1], device=ids.device) == slot[..., None])
+    new_ids = torch.where(put, member_id[..., None], ids)
+    # witness the dot on the member clock and the set clock
+    on_actor = torch.arange(clock.shape[-1], device=clock.device) == actor[..., None]
+    new_dots = torch.where(put[..., None] & on_actor[..., None, :],
+                           torch.maximum(dots, counter[..., None, None]), dots)
+    new_clock = torch.where(do & on_actor, torch.maximum(clock, counter[..., None]), clock)
+    new_ids, new_dots, d_ids, d_clocks = _apply_deferred(new_clock, new_ids, new_dots,
+                                                         dids, dclocks)
+    return new_clock, new_ids, new_dots, d_ids, d_clocks, overflow
+
+
+def apply_remove(clock, ids, dots, dids, dclocks, rm_clock, member_id):
+    """Batched ``Op::Rm`` (`orswot.rs:195-211`), one remove per object:
+    defer when the remove clock is ahead of the set clock, and always
+    subtract it from the member's dots.  Returns the updated state and an
+    overflow flag (deferred table full)."""
+    ahead = ~clock_ops.leq(rm_clock, clock)
+    # dedup: an identical (member, clock) row may already be buffered
+    d_valid = dids != EMPTY
+    same = (dids == member_id[..., None]) & clock_ops.eq(dclocks, rm_clock[..., None, :]) & d_valid
+    want_defer = ahead & ~same.any(dim=-1)
+    free = ~d_valid
+    has_free = free.any(dim=-1)
+    slot = free.to(torch.int8).argmax(dim=-1)
+    overflow = want_defer & ~has_free
+    do = (want_defer & has_free)[..., None]
+    put = do & (torch.arange(dids.shape[-1], device=dids.device) == slot[..., None])
+    new_dids = torch.where(put, member_id[..., None], dids)
+    new_dclocks = torch.where(put[..., None], rm_clock[..., None, :], dclocks)
+
+    # subtract the remove clock from the member's dots (`orswot.rs:205-210`)
+    target = ids == member_id[..., None]
+    new_dots = torch.where(target[..., None], clock_ops.subtract(dots, rm_clock[..., None, :]),
+                           dots)
+    live = ~clock_ops.is_empty(new_dots) & (ids != EMPTY)
+    new_ids = torch.where(live, ids, torch.full_like(ids, EMPTY))
+    new_dots = torch.where(live[..., None], new_dots, _z(new_dots))
+    return clock, new_ids, new_dots, new_dids, new_dclocks, overflow
+
+
+def member_mask(ids):
+    """Live-member mask: ``value()`` as a bitmap over slots."""
+    return ids != EMPTY

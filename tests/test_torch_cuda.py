@@ -326,3 +326,99 @@ def test_wire_loop_overflow_on_the_card_raises_and_the_loop_recovers(dev, overla
     with pytest.raises(CapacityOverflowError, match="member_capacity"):
         loop.run([bad, good], overlap=overlap)
     assert loop.run([good], overlap=overlap)["out_blobs"] == want
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_scatter_max_on_the_card_is_the_lattice_join(dev, dtype):
+    """``scatter_reduce_(..., "amax")`` on biased planes over the full
+    counter range, duplicate indices included, equals the unsigned max
+    (the lattice join) and the same scatter on the CPU."""
+    from crdt_tpu_torch.dtypes import zero_of
+    from crdt_tpu_torch.oplog.apply import _scatter_max
+
+    rng = np.random.RandomState(41)
+    info = torch.iinfo(dtype)
+    np_dt = np.int32 if dtype == torch.int32 else np.int64
+    plane = torch.from_numpy(rng.randint(info.min, info.max, size=(257, 16, 8), dtype=np_dt))
+    lin = torch.from_numpy(rng.randint(0, plane.numel(), size=5000))
+    vals = torch.from_numpy(rng.randint(info.min, info.max, size=5000, dtype=np_dt))
+    vals[:100] = zero_of(dtype)
+    got = _scatter_max(plane.to(dev), lin.to(dev), vals.to(dev)).cpu()
+    assert torch.equal(got, _scatter_max(plane, lin, vals))
+    unsigned = np.uint32 if dtype == torch.int32 else np.uint64
+    want = (plane.numpy() ^ np_dt(info.min)).view(unsigned).reshape(-1).copy()
+    np.maximum.at(want, lin.numpy(), (vals.numpy() ^ np_dt(info.min)).view(unsigned))
+    assert np.array_equal((got.numpy() ^ np_dt(info.min)).view(unsigned).reshape(-1), want)
+
+
+@pytest.mark.parametrize("bits", [32, 64])
+def test_coo_routes_on_the_card_equal_the_cpu(dev, bits):
+    """``from_coo`` by both routes and ``_cells``/``to_scalar`` computed on
+    the card equal the same on the CPU."""
+    from crdt_tpu_torch import CrdtConfig, OrswotBatch, Universe
+
+    dt = np.uint32 if bits == 32 else np.uint64
+    uni = Universe.identity(CrdtConfig(num_actors=33, member_capacity=8, deferred_capacity=2,
+                                       counter_bits=bits))
+    planes = random_orswot_arrays(np.random.RandomState(42), 301, 33, 8, 2, dtype=dt,
+                                  max_counter=2**31, deferred_frac=0.5)
+    cpu = OrswotBatch.from_numpy(*planes, device="cpu")
+    clock, dots, q, h = cpu.to_coo(via_device=False)
+    names = ("clock", "ids", "dots", "d_ids", "d_clocks")
+    want = OrswotBatch.from_coo(301, uni, clock_coords=clock, dot_coords=dots,
+                                deferred_members=q, deferred_coords=h, device="cpu")
+    for via_device in (True, False):
+        got = OrswotBatch.from_coo(301, uni, clock_coords=clock, dot_coords=dots,
+                                   deferred_members=q, deferred_coords=h, device=dev,
+                                   via_device=via_device)
+        for name in names:
+            assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+    card = OrswotBatch.from_numpy(*planes, device=dev)
+    for b_got, b_want in zip(card._cells(via_device=True), cpu._cells(via_device=True)):
+        for g, w in zip(b_got, b_want):
+            assert np.array_equal(g, w) and g.dtype == w.dtype
+    from crdt_tpu_torch.utils.serde import to_binary
+
+    assert ([to_binary(s) for s in card.to_scalar(uni)]
+            == [to_binary(s) for s in cpu.to_scalar(uni, via_device=False)])
+
+
+@pytest.mark.parametrize("bits", [32, 64])
+@pytest.mark.parametrize("overlap", [True, False])
+def test_op_loop_on_the_card_equals_the_loop_on_the_cpu(dev, bits, overlap):
+    """Op frames (adds, removes in several rounds, deferral, a frame
+    before its predecessor) folded by ``PipelinedOpLoop`` on the card give
+    the planes and counts of the same loop on the CPU."""
+    from crdt_tpu_torch import CrdtConfig, OrswotBatch, PipelinedOpLoop, Universe
+    from crdt_tpu_torch.oplog import OpBatch, derive_add_ctx, derive_rm_ctx, encode_ops_frame
+
+    dt = np.uint32 if bits == 32 else np.uint64
+    uni = Universe.identity(CrdtConfig(num_actors=64, member_capacity=16, deferred_capacity=2,
+                                       counter_bits=bits))
+    reps = anti_entropy_fleets(np.random.RandomState(43), 999, 64, 16, 2, 1, base=6, novel=1,
+                               deferred_frac=0.25, dtype=dt)
+    cpu = OrswotBatch.from_numpy(*reps[0], device="cpu")
+    cpu = cpu.merge(cpu)
+    rng = np.random.RandomState(44)
+    clock = cpu.to_numpy()[0].astype(np.uint64)
+    # removes go to objects without deferred rows, at most two each, so
+    # that deferral stays within D=2
+    pool = rng.permutation(np.nonzero((cpu.d_ids == -1).all(dim=1).numpy())[0])
+    frames = []
+    for f in range(4):
+        ops, _ = derive_add_ctx(clock, rng.randint(0, 999, 3000), rng.randint(0, 64, 3000),
+                                member=rng.randint(0, 4, 3000), device="cpu")
+        np.maximum.at(clock, (ops.obj, ops.actor), ops.counter)
+        robj = pool[100 * f:100 * (f + 1)]
+        robj = np.concatenate([robj, robj[:10]])
+        rms = derive_rm_ctx(clock, robj, rng.randint(0, 4, robj.shape[0]))
+        rms.rm_clocks[::7, 3] += 1
+        frames.append(encode_ops_frame(OpBatch.concat([ops, rms])))
+    frames[1], frames[2] = frames[2], frames[1]
+    want, wst = PipelinedOpLoop(uni).run(cpu, frames, overlap=overlap)
+    got, gst = PipelinedOpLoop(uni).run(OrswotBatch(*(getattr(cpu, k).to(dev) for k in (
+        "clock", "ids", "dots", "d_ids", "d_clocks"))), frames, overlap=overlap)
+    for name in ("clock", "ids", "dots", "d_ids", "d_clocks"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+    for k in ("ops", "applied", "duplicates", "still_parked"):
+        assert gst[k] == wst[k], k
