@@ -58,8 +58,25 @@ Phases, in order; any failure ends the run with a nonzero exit:
    ops in causal order, and ``from_coo(to_coo(x))`` must equal ``x``;
    then the device times of the op path's torch bodies and their bounds.
 
+8. flat types — VClock (1k and 1M x 64), GCounter (2 replicas x 4
+   actors), PNCounter (1M x [2, 32]), LWWReg (10M), GSet (1M x 1024) and
+   MVReg (250k x K=8 x A=64) fleets, u64, generated on the card from a
+   seed: R replicas folded through the batch ``merge`` (timed by CUDA
+   events, beside the bytes bound), the fold held against the same
+   merges on the CPU and, on 2,048 sampled objects, against the scalar
+   engine; a wire round (``to_wire`` of each replica, ``from_wire`` →
+   fold → ``to_wire``, byte-equal to ``to_wire`` of the device fold, every
+   blob through the host codec, a truncated blob raising
+   ``WireFormatError``); then 16 op frames of 65,536 ``inc``/``dec``/``set``
+   ops through ``encode_ops_frame``/``decode_ops_frame`` into the
+   GCounter, PNCounter and LWWReg fleets (frame 11 before frame 10, every
+   frame delivered twice, a sample against the scalar engine; planted
+   LWW conflicts raise and match the bitmap).  One ``flat_types`` JSON
+   line carries every number.  The phase launches no kernel: its bodies
+   are torch ops, as the JAX package's are ``jnp``.
+
 Launch counts are reset just before phase 4 and read just after, and
-again around phases 5, 6, 6b and 7.  The last lines are the kernel table
+again around phases 5, 6, 6b, 7 and 8.  The last lines are the kernel table
 (JSON), the card's name and power limit, and ``{"ok": true, "device":
 ...}``.  Needs one CUDA card; exits nonzero without one.
 """
@@ -88,6 +105,12 @@ WIRE_RUNS = (("overlapped", True, "all"), ("serial", False, "all"),
 # the op path (phase 7): frames of ops, the frame delivered early, the sample
 OP_FRAMES, OP_FRAME_OPS, OP_SWAP, OP_SAMPLE = 32, 65_536, 10, 2048
 PLANES = ("clock", "ids", "dots", "d_ids", "d_clocks")
+# the flat types (phase 8), u64: BASELINE.md configs 1, 2 (1k and 1M
+# clocks), 3 and 5, a 1M x 1024 GSet and a 250k x K=8 MVReg fleet; the op
+# frames of bench.py::bench_oplog's largest batch
+FLAT_A, FLAT_PN_A, FLAT_N, FLAT_LWW_N, FLAT_U, FLAT_K, FLAT_MV_N = (
+    64, 32, 1_000_000, 10_000_000, 1024, 8, 250_000)
+FLAT_WIRE_R, FLAT_SAMPLE, FLAT_ITERS, FLAT_FRAMES, FLAT_FRAME_OPS = 2, 2048, 5, 16, 65_536
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 # the data sheet gives no INT32 rate: 64 INT32 lanes x 132 SMs x 1.98 GHz
 INT32_OPS_PER_S = 16.7e12
@@ -1112,6 +1135,329 @@ def op_path(dev, card: str):
     return _build.launch_counts()["orswot_merge"]
 
 
+# -- phase 8 -------------------------------------------------------------------
+
+
+def flat_planes(b):
+    """The tensors of a flat batch, in field order."""
+    import dataclasses
+
+    return tuple(getattr(b, f.name) for f in dataclasses.fields(b))
+
+
+def flat_rows(b, rows):
+    return type(b)(*(x[rows] for x in flat_planes(b)))
+
+
+def left_fold(reps):
+    acc = reps[0]
+    for b in reps[1:]:
+        acc = acc.merge(b)
+    return acc
+
+
+def same_flat(got, want, what: str):
+    import torch
+
+    for g, w in zip(flat_planes(got), flat_planes(want)):
+        if not torch.equal(g.cpu(), w.cpu()):
+            raise AssertionError(f"{what}: planes differ")
+
+
+def flat_fleets(dev):
+    """Seeded replica fleets, generated on the card (``bench.py``'s dense
+    clocks: counters uniform in [0, 1000)), one type at a time."""
+    import torch
+
+    from crdt_tpu_torch import (
+        GCounterBatch, GSetBatch, LWWRegBatch, MVRegBatch, PNCounterBatch, VClockBatch,
+    )
+    from crdt_tpu_torch.dtypes import ZERO64
+
+    gen = torch.Generator(device=dev)
+
+    def ints(shape, hi, seed):
+        gen.manual_seed(seed)
+        return torch.randint(0, hi, shape, generator=gen, device=dev, dtype=torch.int64)
+
+    def clocks(shape, seed):
+        return ints(shape, 1000, seed) ^ ZERO64
+
+    def mvreg(r):
+        base = ints((FLAT_MV_N, 1, FLAT_A), 1000, SEED + 80)
+        c = (base + ints((FLAT_MV_N, FLAT_K, FLAT_A), 3, SEED + 81 + r)) ^ ZERO64
+        live = torch.arange(FLAT_K, device=dev) < 1 + ints((FLAT_MV_N, 1), 2, SEED + 90 + r)
+        c = torch.where(live[..., None], c, ZERO64)
+        return MVRegBatch(c, torch.where(live, 1 + ints((FLAT_MV_N, FLAT_K), 1 << 30, SEED + 95 + r), 0))
+
+    def gset(r):
+        gen.manual_seed(SEED + 70 + r)
+        return GSetBatch(torch.rand((FLAT_N, FLAT_U), generator=gen, device=dev) < 0.05)
+
+    def lww(r):
+        return LWWRegBatch(ints((FLAT_LWW_N,), 1 << 31, SEED + 50 + r),
+                           (ints((FLAT_LWW_N,), 1 << 40, SEED + 60 + r) * 8 + r) ^ ZERO64)
+
+    # name: (class, replica r -> batch, replicas, replicas in the wire round,
+    # from_wire's extra arguments, actors)
+    return {
+        "gcounter_2x4": (GCounterBatch, lambda r: GCounterBatch(clocks((1, 4), SEED + 10 + r)),
+                         2, 2, (), 4),
+        "vclock_1k": (VClockBatch, lambda r: VClockBatch(clocks((1000, FLAT_A), SEED + 20 + r)),
+                      8, 8, (), FLAT_A),
+        "vclock_1m": (VClockBatch, lambda r: VClockBatch(clocks((FLAT_N, FLAT_A), SEED + 30 + r)),
+                      8, FLAT_WIRE_R, (), FLAT_A),
+        "pncounter_1m": (PNCounterBatch,
+                         lambda r: PNCounterBatch(clocks((FLAT_N, 2, FLAT_PN_A), SEED + 40 + r)),
+                         8, FLAT_WIRE_R, (), FLAT_PN_A),
+        "lwwreg_10m": (LWWRegBatch, lww, 8, FLAT_WIRE_R, (), FLAT_A),
+        "gset_1m": (GSetBatch, gset, 8, FLAT_WIRE_R, (FLAT_U,), FLAT_A),
+        "mvreg_250k": (MVRegBatch, mvreg, 4, FLAT_WIRE_R, (), FLAT_A),
+    }
+
+
+def flat_sample_check(reps, fold, uni, what: str):
+    """``FLAT_SAMPLE`` objects of the device fold against the port's scalar
+    engine folding the same states (``to_binary`` bytes equal)."""
+    from crdt_tpu_torch.utils.serde import to_binary
+
+    n = flat_planes(fold)[0].shape[0]
+    rows = rows_of(np.random.RandomState(SEED + 5).choice(n, min(n, FLAT_SAMPLE), replace=False),
+                   flat_planes(fold)[0].device)
+    acc = flat_rows(reps[0], rows).to_scalar(uni)
+    for b in reps[1:]:
+        for s, o in zip(acc, flat_rows(b, rows).to_scalar(uni)):
+            s.merge(o)
+    got = flat_rows(fold, rows).to_scalar(uni)
+    if [to_binary(s) for s in got] != [to_binary(s) for s in acc]:
+        raise AssertionError(f"{what}: the device fold != the scalar engine's on the sample")
+
+
+def flat_wire_round(cls, reps, extra, uni, leg: str, what: str):
+    """``to_wire`` of every replica, then ``from_wire`` → fold → ``to_wire``:
+    byte-equal to ``to_wire`` of the device fold; native fractions; a
+    truncated blob raises.  Returns the round's numbers."""
+    import torch
+
+    from crdt_tpu_torch import WireFormatError
+    from crdt_tpu_torch.batch import wirebulk
+
+    dev = flat_planes(reps[0])[0].device
+    before = wirebulk.wire_counts(leg)
+    t0 = time.perf_counter()
+    blobs = [b.to_wire(uni) for b in reps]
+    t1 = time.perf_counter()
+    parsed = [cls.from_wire(bl, uni, *extra, device=dev) for bl in blobs]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out = left_fold(parsed).to_wire(uni)
+    t3 = time.perf_counter()
+    if out != left_fold(reps).to_wire(uni):
+        raise AssertionError(f"{what}: the wire round's blobs != to_wire of the device fold")
+    grew = wirebulk.counts_since(before, leg)
+    frac = {d: wirebulk.native_fraction(grew, d) for d in ("from_wire", "to_wire")}
+    if frac != {"from_wire": 1.0, "to_wire": 1.0}:
+        raise AssertionError(f"{what}: not every blob took the host codec ({grew})")
+    try:
+        cls.from_wire([blobs[0][0][:-1]], uni, *extra, device=dev)
+    except WireFormatError:
+        pass
+    else:
+        raise AssertionError(f"{what}: a truncated blob did not raise WireFormatError")
+    n = len(blobs[0])
+    return {"wire_replicas": len(reps), "encode_s": t1 - t0, "parse_s": t2 - t1,
+            "fold_encode_s": t3 - t2, "wire_bytes_per_object": sum(map(len, blobs[0])) / n,
+            "native_fraction": frac}
+
+
+def flat_fold(name, cls, reps, wire_r, extra, uni, card: str):
+    """Fold the replicas through the batch ``merge`` (timed), check the
+    fold on a sample against the scalar engine and in full against the
+    same merges on the CPU, and run a wire round."""
+    import torch
+
+    n = flat_planes(reps[0])[0].shape[0]
+    t0 = time.perf_counter()
+    fold = left_fold(reps)
+    ms = cuda_ms(lambda: left_fold(reps), FLAT_ITERS)
+    t1 = time.perf_counter()
+    # one merge reads two states and writes one (plus its conflict or
+    # overflow flags); MVReg's dominance tests compare [n, K, K, A]
+    # counters twice (an int64 compare counted as 2 INT32 operations)
+    state = nbytes(flat_planes(reps[0]))
+    flags = n if cls.__name__ in ("LWWRegBatch", "MVRegBatch") else 0
+    ops = 4 * n * FLAT_K * FLAT_K * FLAT_A if cls.__name__ == "MVRegBatch" else 0
+    b_ms, b_by = bound_ms(2 * state, state + flags, ops)
+    merge_ms = ms / (len(reps) - 1)
+    cpu = left_fold([cls(*(x.cpu() for x in flat_planes(b))) for b in reps])
+    same_flat(fold, cpu, f"{name}: the device fold against the CPU plain path")
+    t2 = time.perf_counter()
+    flat_sample_check(reps, fold, uni, name)
+    t3 = time.perf_counter()
+    leg = {"GCounterBatch": "gcounter", "VClockBatch": "vclock", "PNCounterBatch": "pncounter",
+           "LWWRegBatch": "lww", "GSetBatch": "gset", "MVRegBatch": "mvreg"}[cls.__name__]
+    wire = flat_wire_round(cls, reps[:wire_r], extra, uni, leg, name)
+    row = {"objects": n, "replicas": len(reps), "fold_ms": ms, "merge_ms": merge_ms,
+           "merges_per_s": n * len(reps) / (ms / 1e3), "bound_ms_per_merge": b_ms,
+           "bound_by": b_by, "share_of_bound": b_ms / merge_ms, "state_bytes": state, **wire,
+           "phase_s": {"fold_timing": t1 - t0, "cpu_check": t2 - t1, "sample_check": t3 - t2,
+                       "wire_round_and_checks": time.perf_counter() - t3}}
+    log(f"  {name}: {n} objects x {len(reps)} replicas, fold {ms:.4f} ms ({merge_ms:.4f} ms per "
+        f"merge, bound {b_ms:.4f} ms by {b_by}, {row['merges_per_s'] / 1e6:.2f}M merges/s); "
+        f"device == CPU plain path, {min(n, FLAT_SAMPLE)} sampled == scalar engine; wire round "
+        f"({wire['wire_replicas']} replicas): encode {wire['encode_s']:.3f} s, parse "
+        f"{wire['parse_s']:.3f} s, fold+encode {wire['fold_encode_s']:.3f} s, "
+        f"{wire['wire_bytes_per_object']:.1f} B/object, codec share 1.0 [{card}]")
+    del cpu
+    torch.cuda.synchronize()
+    return fold, row
+
+
+def flat_op_traffic(fleet, kind: str, rng):
+    """``FLAT_FRAMES`` frames of ``FLAT_FRAME_OPS`` ops, objects and actors
+    uniform: ``inc`` dots (``dec`` too for PNCounter) carrying each
+    actor's running total, or LWW ``set``s with unique markers above
+    every register's."""
+    from crdt_tpu_torch.dtypes import counters_to_numpy
+    from crdt_tpu_torch.oplog import OP_DEC, OP_INC, OP_SET, OpBatch
+
+    total = FLAT_FRAMES * FLAT_FRAME_OPS
+    if kind == "lww":
+        n = fleet.vals.shape[0]
+        obj = rng.randint(0, n, size=total)
+        top = int(counters_to_numpy(fleet.markers.max()))
+        marker = np.uint64(top + 1) + rng.permutation(total).astype(np.uint64)
+        cols = (np.full(total, OP_SET), obj, np.zeros(total), marker,
+                rng.randint(0, 1 << 31, size=total))
+    else:
+        plane = fleet.planes if kind == "pncounter" else fleet.clocks[:, None]
+        n, p, a = plane.shape
+        obj, actor = rng.randint(0, n, size=total), rng.randint(0, a, size=total)
+        dec = rng.rand(total) < 0.5 if p == 2 else np.zeros(total, bool)
+        key = (obj * p + dec) * a + actor
+        order = np.argsort(key, kind="stable")
+        rank = np.empty(total, np.uint64)
+        rank[order] = np.arange(total) - np.searchsorted(key[order], key[order])
+        base = counters_to_numpy(plane.reshape(-1)[rows_of(key, plane.device)])
+        cols = (np.where(dec, OP_DEC, OP_INC), obj, actor, base + rank + np.uint64(1),
+                np.full(total, -1))
+    ops = OpBatch(*(np.asarray(c, dt) for c, dt in zip(
+        cols, (np.uint8, np.int64, np.int32, np.uint64, np.int32))))
+    return [ops.select(np.arange(f * FLAT_FRAME_OPS, (f + 1) * FLAT_FRAME_OPS))
+            for f in range(FLAT_FRAMES)]
+
+
+def flat_op_fold(kind, fleet, uni, card: str):
+    """The op frames through ``encode_ops_frame``/``decode_ops_frame`` into
+    ``fleet``, frame 11 before frame 10, then every frame again: the
+    re-delivery changes nothing, and a sample equals the scalar engine
+    witnessing the same ops.  LWW also folds a frame of planted
+    equal-marker conflicts."""
+    import torch
+
+    from crdt_tpu_torch import ConflictingMarker
+    from crdt_tpu_torch.oplog import (
+        OP_DEC, OpBatch, apply_gcounter_ops, apply_lww_ops, apply_pncounter_ops,
+        decode_ops_frame, encode_ops_frame,
+    )
+    from crdt_tpu_torch.scalar import Dir, Dot, PNOp
+    from crdt_tpu_torch.utils.serde import to_binary
+
+    apply = {"gcounter": apply_gcounter_ops, "pncounter": apply_pncounter_ops,
+             "lww": apply_lww_ops}[kind]
+    a = flat_planes(fleet)[0].shape[-1] if kind != "lww" else 1
+    rng = np.random.RandomState(SEED + 7)
+    t_traffic = time.perf_counter()
+    frames = [encode_ops_frame(ops) for ops in flat_op_traffic(fleet, kind, rng)]
+    t_traffic = time.perf_counter() - t_traffic
+    order = list(range(FLAT_FRAMES))
+    order[OP_SWAP], order[OP_SWAP + 1] = order[OP_SWAP + 1], order[OP_SWAP]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fleet
+    for f in order:
+        out = apply(out, decode_ops_frame(frames[f], num_actors=a))
+    torch.cuda.synchronize()
+    e2e = time.perf_counter() - t0
+    again = out
+    for f in order:
+        again = apply(again, decode_ops_frame(frames[f], num_actors=a))
+    same_flat(again, out, f"{kind} ops: the second delivery")
+    n = flat_planes(fleet)[0].shape[0]
+    sample = np.random.RandomState(SEED + 8).choice(n, FLAT_SAMPLE, replace=False)
+    rows = rows_of(sample, flat_planes(fleet)[0].device)
+    states = flat_rows(fleet, rows).to_scalar(uni)
+    where = {int(o): k for k, o in enumerate(sample)}
+    for f in order:
+        ops = decode_ops_frame(frames[f], num_actors=a)
+        for r in np.nonzero(np.isin(ops.obj, sample))[0].tolist():
+            s, c = states[where[int(ops.obj[r])]], int(ops.counter[r])
+            if kind == "lww":
+                s.update(int(ops.member[r]), c)
+            elif kind == "gcounter":
+                s.apply(Dot(int(ops.actor[r]), c))
+            else:
+                s.apply(PNOp(Dot(int(ops.actor[r]), c),
+                             Dir.NEG if ops.kind[r] == OP_DEC else Dir.POS))
+    got = flat_rows(out, rows).to_scalar(uni)
+    if [to_binary(s) for s in got] != [to_binary(s) for s in states]:
+        raise AssertionError(f"{kind} ops: the fold != the scalar engine on the sample")
+    row = {"ops": FLAT_FRAMES * FLAT_FRAME_OPS, "frames": FLAT_FRAMES, "e2e_s": e2e,
+           "traffic_s": t_traffic,
+           "ops_per_s": FLAT_FRAMES * FLAT_FRAME_OPS / e2e,
+           "wire_bytes_per_op": sum(map(len, frames)) / (FLAT_FRAMES * FLAT_FRAME_OPS)}
+    if kind == "lww":
+        planted = rng.choice(n, 96, replace=False)
+        ops = decode_ops_frame(frames[0])
+        top = int(ops.counter.max()) + 10
+        clash = OpBatch.concat([ops, OpBatch(
+            np.full(192, ops.kind[0], np.uint8), np.repeat(planted, 2), np.zeros(192, np.int32),
+            np.repeat(np.arange(96, dtype=np.uint64) + np.uint64(top), 2),
+            np.tile(np.array([1, 2], np.int32), 96))])
+        try:
+            apply_lww_ops(out, clash)
+        except ConflictingMarker:
+            pass
+        else:
+            raise AssertionError("lww ops: planted conflicts did not raise ConflictingMarker")
+        _, bitmap = apply_lww_ops(out, clash, check=False)
+        if set(np.nonzero(bitmap)[0].tolist()) != set(planted.tolist()):
+            raise AssertionError("lww ops: the conflict bitmap != the planted set")
+        row["planted_conflicts"] = 96
+    log(f"  {kind} ops: {row['ops']} ops in {FLAT_FRAMES} frames into {n} objects, "
+        f"{e2e:.4f} s ({row['ops_per_s'] / 1e6:.3f}M ops/s, {row['wire_bytes_per_op']:.2f} wire "
+        f"B/op); re-delivery unchanged; {FLAT_SAMPLE} sampled == scalar engine [{card}]")
+    return row
+
+
+def flat_types(dev, card: str):
+    """Phase 8: the flat types at BASELINE.md's sizes (u64)."""
+    import torch
+
+    from crdt_tpu_torch import CrdtConfig, GCounterBatch, Universe
+
+    cfgs = {a: Universe.identity(CrdtConfig(num_actors=a, mv_capacity=FLAT_K)) for a in
+            (4, FLAT_PN_A, FLAT_A)}
+    report = {"card": card}
+    folds = {}
+    t0 = time.perf_counter()
+    for name, (cls, make, r, wire_r, extra, a) in flat_fleets(dev).items():
+        reps = [make(i) for i in range(r)]
+        folds[name], report[name] = flat_fold(name, cls, reps, wire_r, extra, cfgs[a], card)
+        if name == "gcounter_2x4":
+            log(f"  gcounter_2x4 value {folds[name].value().tolist()} (the scalar engine's: "
+                f"{[s.value() for s in folds[name].to_scalar(cfgs[a])]})")
+        del reps
+        torch.cuda.empty_cache()
+    gcount = GCounterBatch(folds["vclock_1m"].clocks)
+    for kind, fleet, uni in (("gcounter", gcount, cfgs[FLAT_A]),
+                             ("pncounter", folds["pncounter_1m"], cfgs[FLAT_PN_A]),
+                             ("lww", folds["lwwreg_10m"], cfgs[FLAT_A])):
+        report[f"{kind}_ops"] = flat_op_fold(kind, fleet, uni, card)
+    report["phase_s"] = time.perf_counter() - t0
+    print("flat_types " + json.dumps(report), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1218,6 +1564,14 @@ def main() -> int:
         "fleet's self-merges; the op bodies are torch ops)")
     if op_k2 == 0:
         raise AssertionError("the op path never launched the merge kernel")
+    torch.cuda.empty_cache()
+
+    log("== phase 8: flat types (fold, wire round and op frames on the card)")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    flat_types(dev, card)
+    log(f"  phase 8 took {time.perf_counter() - t0:.1f} s; launches {_build.launch_counts()} "
+        "(the flat types' bodies are torch ops)")
 
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -1,8 +1,10 @@
-"""crdt_tpu_torch — the ORSWOT anti-entropy fold on PyTorch and CUDA.
+"""crdt_tpu_torch — dense CRDT batches on PyTorch and CUDA.
 
 A second package beside the JAX reference (``crdt_tpu``): dense ORSWOT
 batches held on a CUDA device, the pairwise merge and the anti-entropy
-folds, hand-written CUDA kernels for the three hot paths (``csrc/``),
+folds; the flat types (``VClockBatch``, ``GCounterBatch``,
+``PNCounterBatch``, ``GSetBatch``, ``LWWRegBatch``, ``MVRegBatch``) with
+their wire legs and the counter and LWW op folds, as torch ops; hand-written CUDA kernels for the three hot paths (``csrc/``),
 the wire leg — ``OrswotBatch.from_wire``/``to_wire`` through a host
 C++ codec (``native/``) and :class:`PipelinedWireLoop`, which folds wire
 blobs on the card — and the op path (``oplog/``, :class:`PipelinedOpLoop`):
@@ -30,11 +32,15 @@ Quick start::
     fleet, stats = PipelinedOpLoop(uni).run(fleet, [encode_ops_frame(ops)])
 """
 
-from .batch import OrswotBatch, PipelinedOpLoop, PipelinedWireLoop
+from .batch import (
+    GCounterBatch, GSetBatch, LWWRegBatch, MVRegBatch, OrswotBatch, PipelinedOpLoop,
+    PipelinedWireLoop, PNCounterBatch, VClockBatch,
+)
 from .config import CrdtConfig, MERGE_IMPLS
 from .device import resolve_device
 from .error import (
     CapacityOverflowError,
+    ConflictingMarker,
     CrdtError,
     DeviceUnavailableError,
     KernelError,
@@ -47,22 +53,29 @@ from .utils.interning import IdentityRegistry, Registry, Universe
 
 __all__ = [
     "CapacityOverflowError",
+    "ConflictingMarker",
     "CrdtConfig",
     "CrdtError",
     "DeviceUnavailableError",
+    "GCounterBatch",
+    "GSetBatch",
     "IdentityRegistry",
     "JoinError",
     "JoinExecutor",
     "JoinStats",
     "KernelError",
+    "LWWRegBatch",
     "MERGE_IMPLS",
+    "MVRegBatch",
     "OpLogOverflowError",
     "OrswotBatch",
+    "PNCounterBatch",
     "PipelinedOpLoop",
     "PipelinedWireLoop",
     "Registry",
     "SyncProtocolError",
     "Universe",
+    "VClockBatch",
     "WireFormatError",
     "join_all",
     "resolve_device",

@@ -61,25 +61,35 @@ GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-Wall")
 _INGEST = [P, P] + [LL] * 4 + [P] * 6 + [LL, LL]
 _ENCODE = [P] * 5 + [LL] * 4 + [P, P, LL]
 _ENCODE_ROWS = [P] * 6 + [LL] * 4 + [P, P, LL]
+# the codec legs: (name, argument types, suffixed by counter width)
+_CODEC = (
+    ("orswot_ingest_wire", _INGEST, True),
+    ("orswot_encode_wire", _ENCODE, True),
+    ("orswot_encode_wire_rows", _ENCODE_ROWS, True),
+    ("mvreg_ingest_wire", [P, P, LL, LL, LL, P, P, P, LL], True),
+    ("mvreg_encode_wire", [P, P, LL, LL, LL, P, P, LL], True),
+    ("clockish_ingest_wire", [P, P, LL, LL, LL, P, P, LL], True),
+    ("clockish_encode_wire", [P, LL, LL, LL, P, P, LL], True),
+    ("pncounter_ingest_wire", [P, P, LL, LL, P, P, LL], True),
+    ("pncounter_encode_wire", [P, LL, LL, P, P, LL], True),
+    ("gset_ingest_wire", [P, P, LL, LL, P, P, LL], False),
+    ("gset_encode_wire", [P, LL, LL, P, P, LL], False),
+    ("lww_ingest_wire_u64", [P, P, LL, P, P, P, LL], False),
+    ("lww_encode_wire_u64", [P, P, LL, P, P, LL], False),
+)
 # host library name -> (source under native/, {exported C function: argument types})
 HOST_LIBS = {
     "wire_ingest": ("wire_ingest.cpp", {
-        f"{fn}_{suffix}": argtypes
-        for fn, argtypes in (("orswot_ingest_wire", _INGEST),
-                             ("orswot_encode_wire", _ENCODE),
-                             ("orswot_encode_wire_rows", _ENCODE_ROWS))
-        for suffix in ("u32", "u64")
+        name: argtypes
+        for fn, argtypes, sized in _CODEC
+        for name in ((f"{fn}_u32", f"{fn}_u64") if sized else (fn,))
     }),
 }
+# every codec ingest returns its count of flagged blobs; encodes return nothing
 _RESTYPES = {
     "orswot_fold_acc_ints": LL,
     "orswot_fold_aligned_smem_per_warp": LL,
-    "orswot_ingest_wire_u32": LL,
-    "orswot_ingest_wire_u64": LL,
-    "orswot_encode_wire_u32": None,
-    "orswot_encode_wire_u64": None,
-    "orswot_encode_wire_rows_u32": None,
-    "orswot_encode_wire_rows_u64": None,
+    **{fn: (LL if "_ingest_" in fn else None) for fn in HOST_LIBS["wire_ingest"][1]},
 }
 
 _LIBS: dict[tuple, ctypes.CDLL] = {}

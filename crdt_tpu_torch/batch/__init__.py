@@ -1,6 +1,13 @@
 """Dense CRDT batches on the device, and the loops that feed them."""
 
+from .gcounter_batch import GCounterBatch
+from .gset_batch import GSetBatch
+from .lwwreg_batch import LWWRegBatch
+from .mvreg_batch import MVRegBatch
 from .orswot_batch import OrswotBatch
+from .pncounter_batch import PNCounterBatch
+from .vclock_batch import VClockBatch
 from .wireloop import PipelinedOpLoop, PipelinedWireLoop
 
-__all__ = ["OrswotBatch", "PipelinedOpLoop", "PipelinedWireLoop"]
+__all__ = ["GCounterBatch", "GSetBatch", "LWWRegBatch", "MVRegBatch", "OrswotBatch",
+           "PNCounterBatch", "PipelinedOpLoop", "PipelinedWireLoop", "VClockBatch"]

@@ -35,6 +35,7 @@ class CrdtConfig:
     num_actors: int = 64  # actor-universe size A (dense interned ids)
     member_capacity: int = 32  # Orswot member slots per object
     deferred_capacity: int = 8  # deferred (clock, member) rows per object
+    mv_capacity: int = 8  # MVReg antichain slots per register
     # counter width: 64 = reference parity (u64), 32 = the kernel width
     counter_bits: int = 64
 

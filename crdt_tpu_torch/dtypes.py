@@ -10,6 +10,13 @@ over the full unsigned range.  Counter 0 becomes the type's minimum,
 :func:`zero_of` (the kernels' ``ZERO``).  Member ids stay int32 with
 ``EMPTY = -1``.
 
+Payload ids — the values of MVReg and LWWReg registers, interned
+member ids — are not counters: they are only compared with ``==`` and
+``!=``.  They are held raw, the unsigned id's bits viewed in the signed
+type of its width with no bias (:func:`payload_to_device`,
+:func:`payload_to_numpy`), so a cleared payload slot is 0 as in the JAX
+package, while a cleared counter is :func:`zero_of`.
+
 The bias is applied and removed only at the package edge:
 :meth:`OrswotBatch.from_numpy <crdt_tpu_torch.batch.OrswotBatch.from_numpy>`
 and ``to_numpy`` (and so ``from_wire`` and ``to_wire``, whose host codec
@@ -96,6 +103,28 @@ def as_counters(x, dtype: torch.dtype, device) -> torch.Tensor:
             raise TypeError(f"biased counters must be {dtype}, got {x.dtype}")
         return x.to(device)
     return to_device(bias_np(np.asarray(x).astype(_UNSIGNED[dtype])), device)
+
+
+def payload_to_device(x, device) -> torch.Tensor:
+    """Unsigned numpy payload ids → raw signed ids on ``device``."""
+    x = np.ascontiguousarray(x)
+    if x.dtype not in _SIGNED:
+        raise TypeError(f"payload ids must be uint32 or uint64, got {x.dtype}")
+    return to_device(x.view(_SIGNED[x.dtype]), device)
+
+
+def as_payload(x, like: torch.Tensor) -> torch.Tensor:
+    """Payload ids for a plane ``like``: a tensor is taken as raw ids;
+    anything else as unsigned ids, cast to the plane's width."""
+    if isinstance(x, torch.Tensor):
+        return x.to(like.device, like.dtype)
+    return payload_to_device(np.asarray(x).astype(_UNSIGNED[like.dtype]), like.device)
+
+
+def payload_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """Raw signed payload ids → unsigned numpy ids (inverse of
+    :func:`payload_to_device`)."""
+    return t.detach().cpu().numpy().view(_UNSIGNED[t.dtype])
 
 
 def counters_to_numpy(t: torch.Tensor) -> np.ndarray:

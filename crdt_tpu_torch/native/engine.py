@@ -1,8 +1,11 @@
 """``ctypes`` bindings of the host wire codec (``wire_ingest.cpp``).
 
 Numpy in, numpy out, on the host: the codec parses serde blobs straight
-into dense ORSWOT planes and encodes planes back into blobs, in
-parallel over objects (a team of threads).  Counters cross this boundary UNSIGNED
+into dense planes (ORSWOT, and the flat types: MVReg, LWWReg, GSet,
+VClock/GCounter, PNCounter) and encodes planes back into blobs, in
+parallel over objects (a team of threads).  Every ingest returns its
+planes and a ``uint8[n]`` status (0 ok, 1 outside the fast-path grammar:
+decode that blob in Python; 2 and up: a hard error of the blob).  Counters cross this boundary UNSIGNED
 (``uint32`` or ``uint64``, 0 = absent), as the JAX package's planes hold
 them; the batch layer moves them into and out of the biased device
 domain (:mod:`crdt_tpu_torch.dtypes`).  The library is built with
@@ -50,6 +53,19 @@ def _contig(*arrays):
     return tuple(np.ascontiguousarray(x) for x in arrays)
 
 
+def _blobs(buf, offsets):
+    """``(buf, offsets, n)`` as the parsers read them; raises unless the
+    offsets are ``n + 1`` non-decreasing boundaries within ``buf``."""
+    buf = np.ascontiguousarray(np.frombuffer(buf, dtype=np.uint8))
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    n = offsets.shape[0] - 1
+    if offsets.ndim != 1 or n < 0 or (n and (offsets[0] < 0 or offsets[-1] > buf.size
+                                             or bool((np.diff(offsets) < 0).any()))):
+        raise ValueError(f"offsets must be {n + 1} non-decreasing boundaries within the "
+                         f"{buf.size}-byte buffer")
+    return buf, offsets, n
+
+
 def _check_planes(planes):
     """``(n, a, m, d, counter dtype)`` of C-contiguous planes ``(clock,
     ids, dots, d_ids, d_clocks)``; raises unless their shapes and dtypes
@@ -93,13 +109,7 @@ def orswot_ingest_wire(buf, offsets, a: int, m: int, d: int, dtype, out=None):
     ``status`` is uint8[n]: 0 ok, 1 outside the fast-path grammar (decode
     it in Python), 2 member overflow, 3 deferred overflow, 4 actor out of
     range.  Rows with nonzero status are left empty."""
-    buf = np.ascontiguousarray(np.frombuffer(buf, dtype=np.uint8))
-    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
-    n = offsets.shape[0] - 1
-    if offsets.ndim != 1 or n < 0 or (n and (offsets[0] < 0 or offsets[-1] > buf.size
-                                             or bool((np.diff(offsets) < 0).any()))):
-        raise ValueError(f"offsets must be {n + 1} non-decreasing boundaries within the "
-                         f"{buf.size}-byte buffer")
+    buf, offsets, n = _blobs(buf, offsets)
     dt = np.dtype(dtype)
     expect = (((n, a), dt), ((n, m), np.dtype(np.int32)), ((n, m, a), dt),
               ((n, d), np.dtype(np.int32)), ((n, d, a), dt))
@@ -161,3 +171,97 @@ def orswot_encode_wire_rows(clock, ids, dots, d_ids, d_clocks, rows):
                          f"got [{int(rows.min())}, {int(rows.max())}]")
     k = rows.shape[0]
     return _encode(_fn("orswot_encode_wire_rows", dt), (*planes, rows), (k, a, m, d), k)
+
+
+def _parse(fn, buf, offsets, shapes, dtype, *lead):
+    """Run the parser ``fn`` over the blobs into zeroed planes of
+    ``shapes`` (``n`` leading each) and return ``(*planes, status)``."""
+    buf, offsets, n = _blobs(buf, offsets)
+    planes = tuple(np.zeros((n, *shape), dtype=dtype) for shape in shapes)
+    status = np.zeros(n, dtype=np.uint8)
+    fn(_ptr(buf), _ptr(offsets), n, *lead, *(_ptr(x) for x in planes), _ptr(status),
+       _THREADS)
+    return (*planes, status)
+
+
+def _same_dtype(*arrays):
+    dt = np.dtype(arrays[0].dtype)
+    if any(np.dtype(x.dtype) != dt for x in arrays[1:]):
+        raise TypeError(f"counter dtype mismatch: {[str(x.dtype) for x in arrays]}")
+    return dt
+
+
+def mvreg_ingest_wire(buf, offsets, k: int, a: int, dtype):
+    """MVReg blobs → ``(clocks [n, k, a], vals [n, k], status)``; status 2:
+    more than ``k`` values, 4: an actor outside ``[0, a)``."""
+    return _parse(_fn("mvreg_ingest_wire", dtype), buf, offsets, ((k, a), (k,)), dtype, k, a)
+
+
+def mvreg_encode_wire(clocks, vals):
+    """``(buf, offsets)`` of MVReg blobs from ``clocks [n, k, a]`` and
+    ``vals [n, k]`` (one unsigned dtype)."""
+    clocks, vals = _contig(clocks, vals)
+    n, k, a = clocks.shape
+    if vals.shape != (n, k):
+        raise ValueError(f"vals: expected shape {(n, k)}, got {vals.shape}")
+    return _encode(_fn("mvreg_encode_wire", _same_dtype(clocks, vals)), (clocks, vals),
+                   (n, k, a), n)
+
+
+def lww_ingest_wire(buf, offsets):
+    """LWWReg blobs → ``(vals, markers, status)``, both ``uint64[n]``."""
+    return _parse(_build.library("wire_ingest").lww_ingest_wire_u64, buf, offsets,
+                  ((), ()), np.uint64)
+
+
+def lww_encode_wire(vals, markers):
+    """``(buf, offsets)`` of LWWReg blobs from ``uint64[n]`` columns."""
+    vals, markers = _contig(vals, markers)
+    if vals.ndim != 1 or markers.shape != vals.shape:
+        raise ValueError(f"vals and markers must be one [n] shape, got {vals.shape}, "
+                         f"{markers.shape}")
+    if _same_dtype(vals, markers) != np.uint64:
+        raise TypeError(f"lww_encode_wire needs uint64 columns, got {vals.dtype}")
+    return _encode(_build.library("wire_ingest").lww_encode_wire_u64, (vals, markers),
+                   (vals.shape[0],), vals.shape[0])
+
+
+def gset_ingest_wire(buf, offsets, u: int):
+    """GSet blobs → ``(bits bool[n, u], status)``; status 2: a member id
+    at or above ``u``."""
+    return _parse(_build.library("wire_ingest").gset_ingest_wire, buf, offsets, ((u,),),
+                  np.bool_, u)
+
+
+def gset_encode_wire(bits):
+    """``(buf, offsets)`` of GSet blobs from ``bits bool[n, u]``."""
+    (bits,) = _contig(np.asarray(bits, dtype=np.bool_).view(np.uint8))
+    n, u = bits.shape
+    return _encode(_build.library("wire_ingest").gset_encode_wire, (bits,), (n, u), n)
+
+
+def clockish_ingest_wire(buf, offsets, tag: int, a: int, dtype):
+    """VClock (tag 0x20) or GCounter (0x22) blobs → ``(clocks [n, a],
+    status)``."""
+    return _parse(_fn("clockish_ingest_wire", dtype), buf, offsets, ((a,),), dtype, tag, a)
+
+
+def clockish_encode_wire(clocks, tag: int):
+    """``(buf, offsets)`` of clock blobs under ``tag`` from ``[n, a]``."""
+    (clocks,) = _contig(clocks)
+    n, a = clocks.shape
+    return _encode(_fn("clockish_encode_wire", clocks.dtype), (clocks,), (n, tag, a), n)
+
+
+def pncounter_ingest_wire(buf, offsets, a: int, dtype):
+    """PNCounter blobs → ``(planes [n, 2, a], status)`` (P = plane 0)."""
+    return _parse(_fn("pncounter_ingest_wire", dtype), buf, offsets, ((2, a),), dtype, a)
+
+
+def pncounter_encode_wire(planes):
+    """``(buf, offsets)`` of PNCounter blobs from ``[n, 2, a]`` planes."""
+    (planes,) = _contig(planes)
+    n, two, a = planes.shape
+    if two != 2:
+        raise ValueError(f"PNCounter planes must be [N, 2, A], got {planes.shape}")
+    return _encode(_fn("pncounter_encode_wire", planes.dtype), (planes,), (n, a), n)

@@ -1,7 +1,8 @@
-// wire_ingest — bulk ORSWOT wire codec: blobs straight into dense planes
-// and dense planes straight back to blobs, on the host.
+// wire_ingest — bulk wire codec: blobs straight into dense planes and
+// dense planes straight back to blobs, on the host.
 //
-// The port's own copy of the ORSWOT legs of the JAX package's native codec
+// The port's own copy of the JAX package's native codec legs for ORSWOT,
+// MVReg, LWWReg, GSet, VClock/GCounter and PNCounter
 // (crdt_tpu_torch imports nothing of that package).  The wire format is
 // the framework's serde codec (crdt_tpu_torch/utils/serde.py, a
 // deterministic varint/tag format — deliberately NOT the reference's
@@ -62,7 +63,12 @@ namespace {
 constexpr uint8_t kTagInt = 0x03;
 constexpr uint8_t kTagTuple = 0x08;
 constexpr uint8_t kTagVClock = 0x20;
+constexpr uint8_t kTagPNCounter = 0x23;  // 0x22 (gcounter) arrives as the
+                                         // clockish codec's tag parameter
+constexpr uint8_t kTagLWW = 0x24;
+constexpr uint8_t kTagMVReg = 0x25;
 constexpr uint8_t kTagOrswot = 0x26;
+constexpr uint8_t kTagGSet = 0x28;
 constexpr int32_t kEmpty = -1;
 
 // body(i) for every i in [0, n), on ``nt`` threads (the caller's among
@@ -663,6 +669,320 @@ void orswot_encode_wire_rows_u64(const uint64_t* clock, const int32_t* ids,
                                  uint8_t* buf, int64_t threads) {
   encode_rows_impl<uint64_t>(clock, ids, dots, d_ids, d_clocks, rows, k, A,
                              M, D, offsets, buf, team(threads));
+}
+
+}  // extern "C"
+
+// ---- the flat types: MVReg, GSet, LWWReg, VClock/GCounter, PNCounter -------
+//
+//   MVREG     := 0x25 uv n, n * ( clock_body, 0x03 zz(val) )  pair blobs
+//                sorted by their full encoded bytes
+//   GSET      := 0x28 uv n, n * (0x03 zz(member))  items sorted by bytes
+//   LWWREG    := 0x24 0x03 zz(val) 0x03 zz(marker)
+//   VCLOCK    := 0x20 clock_body     GCOUNTER := 0x22 clock_body
+//   PNCOUNTER := 0x23 clock_body clock_body   (P then N)
+//
+// Dense layouts: MVReg clocks[K, A] + vals[K] (a slot is live iff its
+// clock is non-empty); GSet a 0/1 byte per member id < U; LWW vals[N] and
+// markers[N], both u64 (markers are timestamps); clocks[N, A];
+// PNCounter planes[N, 2, A].  Payload ids (MVReg/LWW vals, GSet members)
+// live in the identity registry's int32 space.  Status codes as the
+// ORSWOT legs: 1 fallback, 4 actor out of range; 2 is MVReg's antichain
+// overflow (> K values) and GSet's bitmap overflow (id >= U).  Outputs
+// arrive zeroed and a row with a nonzero status is zeroed again.
+
+namespace {
+
+// a clock body into a zeroed dense row; duplicate actor keys keep the
+// last counter, as the other legs' dense scatter (to_binary never emits
+// them)
+template <typename C>
+int parse_clock_body(Cursor& c, int64_t A, C* row) {
+  constexpr uint64_t kCounterMax = static_cast<uint64_t>(~C{0});
+  uint64_t n;
+  if (!c.uv(&n)) return 1;
+  for (uint64_t i = 0; i < n; ++i) {
+    uint64_t actor, counter;
+    if (!c.nonneg(&actor) || !c.nonneg(&counter)) return 1;
+    if (actor >= static_cast<uint64_t>(A)) return 4;
+    if (counter > kCounterMax) return 1;
+    row[actor] = static_cast<C>(counter);
+  }
+  return 0;
+}
+
+template <typename C>
+int parse_mvreg_one(Cursor& c, int64_t K, int64_t A, C* clocks, C* vals) {
+  constexpr uint64_t kCounterMax = static_cast<uint64_t>(~C{0});
+  if (!c.byte(kTagMVReg)) return 1;
+  uint64_t n;
+  if (!c.uv(&n)) return 1;
+  if (n > static_cast<uint64_t>(K)) return 2;
+  for (uint64_t j = 0; j < n; ++j) {
+    int st = parse_clock_body(c, A, clocks + j * A);
+    if (st) return st;
+    uint64_t val;
+    if (!c.nonneg(&val)) return 1;
+    if (val > 0x7FFFFFFFull || val > kCounterMax) return 1;
+    vals[j] = static_cast<C>(val);
+  }
+  return 0;
+}
+
+int parse_gset_one(Cursor& c, int64_t U, uint8_t* bits) {
+  if (!c.byte(kTagGSet)) return 1;
+  uint64_t n;
+  if (!c.uv(&n)) return 1;
+  for (uint64_t i = 0; i < n; ++i) {
+    uint64_t member;
+    if (!c.nonneg(&member)) return 1;
+    // past the int32 id space the Python path raises its own error
+    if (member > 0x7FFFFFFFull) return 1;
+    if (member >= static_cast<uint64_t>(U)) return 2;
+    bits[member] = 1;
+  }
+  return 0;
+}
+
+int parse_lww_one(Cursor& c, uint64_t* val, uint64_t* marker) {
+  if (!c.byte(kTagLWW)) return 1;
+  if (!c.nonneg(val) || *val > 0x7FFFFFFFull) return 1;
+  return c.nonneg(marker) ? 0 : 1;
+}
+
+// parse(cursor, i) -> status for every blob, on the team; a blob must be
+// consumed whole.  clear(i) zeroes row i after a nonzero status.
+template <typename P, typename Z>
+int64_t ingest_rows(const uint8_t* buf, const int64_t* offsets, int64_t n,
+                    uint8_t* status, int nt, const P& parse, const Z& clear) {
+  std::atomic<int64_t> bad{0};
+  parallel_for(n, nt, [&](int64_t i) {
+    Cursor c{buf + offsets[i], buf + offsets[i + 1]};
+    int st = parse(c, i);
+    if (st == 0 && c.p != c.end) st = 1;
+    status[i] = static_cast<uint8_t>(st);
+    if (st) {
+      clear(i);
+      bad.fetch_add(1);
+    }
+  });
+  return bad.load();
+}
+
+// the two egress passes: buf == nullptr writes each blob's size to
+// offsets[1..n] (the caller prefix-sums them), then blob i lands at
+// buf + offsets[i].  enc(i, out) returns the size; out == nullptr sizes.
+template <typename E>
+void encode_rows(int64_t n, int64_t* offsets, uint8_t* buf, int nt,
+                 const E& enc) {
+  parallel_for(n, nt, [&](int64_t i) {
+    if (buf == nullptr)
+      offsets[i + 1] = enc(i, nullptr);
+    else
+      enc(i, buf + offsets[i]);
+  });
+}
+
+bool bytes_less(const std::vector<uint8_t>& x, const std::vector<uint8_t>& y) {
+  const size_t m = x.size() < y.size() ? x.size() : y.size();
+  const int c = std::memcmp(x.data(), y.data(), m);
+  return c ? c < 0 : x.size() < y.size();
+}
+
+template <typename C>
+int64_t mvreg_encode_one(const C* clocks, const C* vals, int64_t K, int64_t A,
+                         uint8_t* out) {
+  const bool sizing = (out == nullptr);
+  std::vector<int64_t> scratch;
+  std::vector<std::vector<uint8_t>> blobs;  // each live slot's pair blob
+  int64_t blob_bytes = 0, n_live = 0;
+  for (int64_t j = 0; j < K; ++j) {
+    const C* row = clocks + j * A;
+    if (std::all_of(row, row + A, [](C x) { return x == 0; })) continue;
+    ++n_live;
+    Emitter cnt{nullptr};
+    emit_clock_body(cnt, row, A, scratch, false);
+    cnt.tagged_nonneg(static_cast<uint64_t>(vals[j]));
+    blob_bytes += cnt.count;
+    if (sizing) continue;
+    std::vector<uint8_t> b(static_cast<size_t>(cnt.count));
+    Emitter w{b.data()};
+    emit_clock_body(w, row, A, scratch);
+    w.tagged_nonneg(static_cast<uint64_t>(vals[j]));
+    blobs.push_back(std::move(b));
+  }
+  Emitter e{out};
+  e.byte(kTagMVReg);
+  e.uv(static_cast<uint64_t>(n_live));
+  if (sizing) return e.count + blob_bytes;
+  std::sort(blobs.begin(), blobs.end(), bytes_less);
+  for (const auto& b : blobs)
+    for (uint8_t x : b) e.byte(x);
+  return e.count;
+}
+
+int64_t gset_encode_one(const uint8_t* bits, int64_t U, uint8_t* out) {
+  Emitter e{out};
+  std::vector<int64_t> members;
+  for (int64_t m = 0; m < U; ++m)
+    if (bits[m]) members.push_back(m);
+  if (out != nullptr)
+    std::sort(members.begin(), members.end(), [](int64_t x, int64_t y) {
+      return varint_bytes_less(static_cast<uint64_t>(x) << 1,
+                               static_cast<uint64_t>(y) << 1);
+    });
+  e.byte(kTagGSet);
+  e.uv(static_cast<uint64_t>(members.size()));
+  for (int64_t m : members) e.tagged_nonneg(static_cast<uint64_t>(m));
+  return e.count;
+}
+
+// VClock/GCounter (planes == 1, under ``tag``) and PNCounter (planes == 2)
+template <typename C>
+int64_t clocks_encode_one(uint8_t tag, const C* row, int64_t planes, int64_t A,
+                          uint8_t* out) {
+  Emitter e{out};
+  std::vector<int64_t> scratch;
+  e.byte(tag);
+  for (int64_t p = 0; p < planes; ++p)
+    emit_clock_body(e, row + p * A, A, scratch, out != nullptr);
+  return e.count;
+}
+
+template <typename C>
+int64_t mvreg_ingest(const uint8_t* buf, const int64_t* offsets, int64_t n,
+                     int64_t K, int64_t A, C* clocks, C* vals, uint8_t* status,
+                     int64_t threads) {
+  return ingest_rows(
+      buf, offsets, n, status, team(threads),
+      [&](Cursor& c, int64_t i) {
+        return parse_mvreg_one<C>(c, K, A, clocks + i * K * A, vals + i * K);
+      },
+      [&](int64_t i) {
+        std::memset(clocks + i * K * A, 0, sizeof(C) * K * A);
+        std::memset(vals + i * K, 0, sizeof(C) * K);
+      });
+}
+
+template <typename C>
+void mvreg_encode(const C* clocks, const C* vals, int64_t n, int64_t K,
+                  int64_t A, int64_t* offsets, uint8_t* buf, int64_t threads) {
+  encode_rows(n, offsets, buf, team(threads), [&](int64_t i, uint8_t* out) {
+    return mvreg_encode_one<C>(clocks + i * K * A, vals + i * K, K, A, out);
+  });
+}
+
+// VClock/GCounter rows (planes == 1, the blob's tag ``tag``) or PNCounter
+// rows (planes == 2, tag 0x23)
+template <typename C>
+int64_t clocks_ingest(const uint8_t* buf, const int64_t* offsets, int64_t n,
+                      uint8_t tag, int64_t planes, int64_t A, C* out,
+                      uint8_t* status, int64_t threads) {
+  const int64_t w = planes * A;
+  return ingest_rows(
+      buf, offsets, n, status, team(threads),
+      [&](Cursor& c, int64_t i) {
+        if (!c.byte(tag)) return 1;
+        for (int64_t p = 0; p < planes; ++p) {
+          int st = parse_clock_body(c, A, out + i * w + p * A);
+          if (st) return st;
+        }
+        return 0;
+      },
+      [&](int64_t i) { std::memset(out + i * w, 0, sizeof(C) * w); });
+}
+
+template <typename C>
+void clocks_encode(const C* rows, int64_t n, uint8_t tag, int64_t planes,
+                   int64_t A, int64_t* offsets, uint8_t* buf, int64_t threads) {
+  encode_rows(n, offsets, buf, team(threads), [&](int64_t i, uint8_t* out) {
+    return clocks_encode_one<C>(tag, rows + i * planes * A, planes, A, out);
+  });
+}
+
+}  // namespace
+
+extern "C" {
+
+#define FLAT_LEGS(C, S)                                                       \
+  int64_t mvreg_ingest_wire_##S(const uint8_t* buf, const int64_t* offsets,   \
+                                int64_t n, int64_t K, int64_t A, C* clocks,   \
+                                C* vals, uint8_t* status, int64_t threads) {  \
+    return mvreg_ingest<C>(buf, offsets, n, K, A, clocks, vals, status,       \
+                           threads);                                          \
+  }                                                                           \
+  void mvreg_encode_wire_##S(const C* clocks, const C* vals, int64_t n,       \
+                             int64_t K, int64_t A, int64_t* offsets,          \
+                             uint8_t* buf, int64_t threads) {                 \
+    mvreg_encode<C>(clocks, vals, n, K, A, offsets, buf, threads);            \
+  }                                                                           \
+  int64_t clockish_ingest_wire_##S(const uint8_t* buf, const int64_t* offsets, \
+                                   int64_t n, int64_t tag, int64_t A,         \
+                                   C* clocks, uint8_t* status,                \
+                                   int64_t threads) {                         \
+    return clocks_ingest<C>(buf, offsets, n, static_cast<uint8_t>(tag), 1, A, \
+                            clocks, status, threads);                         \
+  }                                                                           \
+  void clockish_encode_wire_##S(const C* clocks, int64_t n, int64_t tag,      \
+                                int64_t A, int64_t* offsets, uint8_t* buf,    \
+                                int64_t threads) {                            \
+    clocks_encode<C>(clocks, n, static_cast<uint8_t>(tag), 1, A, offsets, buf, \
+                     threads);                                                \
+  }                                                                           \
+  int64_t pncounter_ingest_wire_##S(const uint8_t* buf,                       \
+                                    const int64_t* offsets, int64_t n,        \
+                                    int64_t A, C* planes, uint8_t* status,    \
+                                    int64_t threads) {                        \
+    return clocks_ingest<C>(buf, offsets, n, kTagPNCounter, 2, A, planes,     \
+                            status, threads);                                 \
+  }                                                                           \
+  void pncounter_encode_wire_##S(const C* planes, int64_t n, int64_t A,       \
+                                 int64_t* offsets, uint8_t* buf,              \
+                                 int64_t threads) {                           \
+    clocks_encode<C>(planes, n, kTagPNCounter, 2, A, offsets, buf, threads);  \
+  }
+
+FLAT_LEGS(uint32_t, u32)
+FLAT_LEGS(uint64_t, u64)
+#undef FLAT_LEGS
+
+int64_t gset_ingest_wire(const uint8_t* buf, const int64_t* offsets, int64_t n,
+                         int64_t U, uint8_t* bits, uint8_t* status,
+                         int64_t threads) {
+  return ingest_rows(
+      buf, offsets, n, status, team(threads),
+      [&](Cursor& c, int64_t i) { return parse_gset_one(c, U, bits + i * U); },
+      [&](int64_t i) { std::memset(bits + i * U, 0, static_cast<size_t>(U)); });
+}
+
+void gset_encode_wire(const uint8_t* bits, int64_t n, int64_t U,
+                      int64_t* offsets, uint8_t* buf, int64_t threads) {
+  encode_rows(n, offsets, buf, team(threads), [&](int64_t i, uint8_t* out) {
+    return gset_encode_one(bits + i * U, U, out);
+  });
+}
+
+int64_t lww_ingest_wire_u64(const uint8_t* buf, const int64_t* offsets,
+                            int64_t n, uint64_t* vals, uint64_t* markers,
+                            uint8_t* status, int64_t threads) {
+  return ingest_rows(
+      buf, offsets, n, status, team(threads),
+      [&](Cursor& c, int64_t i) {
+        return parse_lww_one(c, vals + i, markers + i);
+      },
+      [&](int64_t i) { vals[i] = markers[i] = 0; });
+}
+
+void lww_encode_wire_u64(const uint64_t* vals, const uint64_t* markers,
+                         int64_t n, int64_t* offsets, uint8_t* buf,
+                         int64_t threads) {
+  encode_rows(n, offsets, buf, team(threads), [&](int64_t i, uint8_t* out) {
+    Emitter e{out};
+    e.byte(kTagLWW);
+    e.tagged_nonneg(vals[i]);
+    e.tagged_nonneg(markers[i]);
+    return e.count;
+  });
 }
 
 }  // extern "C"

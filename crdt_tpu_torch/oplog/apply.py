@@ -1,6 +1,6 @@
-"""Batched ``CmRDT::apply``: fold op batches into the ORSWOT planes.
+"""Batched ``CmRDT::apply``: fold op batches into the dense planes.
 
-The port of the ORSWOT half of the JAX package's ``oplog/apply.py``.
+The port of the JAX package's ``oplog/apply.py``.
 Ready adds scatter-max their dots into the set clock and planned member
 slots, then one deferred replay ends them as the scalar ``apply`` does
 (`orswot.rs:78`); removes run ``apply_remove`` (`orswot.rs:195-211`) in
@@ -8,6 +8,13 @@ rounds of at most one per object; an add whose dot does not extend its
 actor's run on its object parks until its predecessors land.  The host
 plans on numpy columns and reads from the device only ``clock[obj,
 actor]`` and the touched id rows; the folds are torch ops on the device.
+
+Counter and LWW planes have folds of their own
+(:func:`apply_gcounter_ops`, :func:`apply_pncounter_ops`,
+:func:`apply_lww_ops`) with no causal buffering: a counter dot carries
+its actor's cumulative total and an LWW write its marker, so one
+scatter-max (or per-register winner) absorbs any delivery order and any
+re-delivery.
 """
 
 from __future__ import annotations
@@ -19,9 +26,9 @@ import numpy as np
 import torch
 
 from ..dtypes import EMPTY, as_counters, counters_to_numpy, zero_of
-from ..error import CapacityOverflowError, OpLogOverflowError
+from ..error import CapacityOverflowError, ConflictingMarker, OpLogOverflowError
 from ..ops.orswot_ops import _apply_deferred
-from .records import OP_ADD, OP_RM, OpBatch, opbatch_nbytes
+from .records import OP_ADD, OP_DEC, OP_INC, OP_RM, OP_SET, OpBatch, opbatch_nbytes
 
 #: member-id sentinel of an idle row in a remove round: it matches no
 #: member slot (ids >= 0, empty slots EMPTY = -1) and no deferred row,
@@ -258,3 +265,93 @@ class OpApplier:
         for k in ("ops", "applied", "duplicates", "parked", "released", "rm_rounds"):
             self.counts[k] += getattr(report, k)
         return batch, report
+
+
+# -- counter and LWW folds ------------------------------------------------------
+
+
+def _in_range(ops: OpBatch, n: int, a: int | None = None) -> None:
+    """Raise ``ValueError`` for an op row (or, given ``a``, an actor)
+    outside the planes: a device scatter has no out-of-range mode."""
+    bad = ops.obj.min() < 0 or ops.obj.max() >= n
+    if a is not None:
+        bad = bad or ops.actor.min() < 0 or ops.actor.max() >= a
+    if bad:
+        raise ValueError(f"op object or actor outside the planes [0, {n}) x [0, {a})")
+
+
+def _fold_dots(plane: torch.Tensor, ops: OpBatch, lin: np.ndarray) -> torch.Tensor:
+    return _scatter_max(plane, torch.from_numpy(lin).to(plane.device),
+                        as_counters(ops.counter, plane.dtype, plane.device))
+
+
+def apply_gcounter_ops(batch, ops: OpBatch):
+    """Fold ``inc`` dots into a ``GCounterBatch``: one scatter-max
+    (`gcounter.rs:71-73`: the op is a dot, the apply a witness)."""
+    if bool((ops.kind != OP_INC).any()):
+        raise ValueError("apply_gcounter_ops folds inc ops only "
+                         "(a GCounter cannot decrement, gcounter.rs:14)")
+    if len(ops) == 0:
+        return batch
+    n, a = batch.clocks.shape
+    _in_range(ops, n, a)
+    return type(batch)(_fold_dots(batch.clocks, ops, ops.obj * a + ops.actor))
+
+
+def apply_pncounter_ops(batch, ops: OpBatch):
+    """Fold ``inc``/``dec`` dots into a ``PNCounterBatch``: the kind picks
+    the P or N plane (`pncounter.rs:65-78`), one scatter-max."""
+    if not bool(np.isin(ops.kind, np.asarray([OP_INC, OP_DEC], np.uint8)).all()):
+        raise ValueError("apply_pncounter_ops folds inc/dec ops only")
+    if len(ops) == 0:
+        return batch
+    n, _, a = batch.planes.shape
+    _in_range(ops, n, a)
+    plane = (ops.kind == OP_DEC).astype(np.int64)
+    return type(batch)(_fold_dots(batch.planes, ops, (ops.obj * 2 + plane) * a + ops.actor))
+
+
+def apply_lww_ops(batch, ops: OpBatch, check: bool = True):
+    """Fold LWW writes — ``(marker, payload id)`` in the ``(counter,
+    member)`` columns — into an ``LWWRegBatch``: per register the highest
+    marker wins (`lwwreg.rs:56-66`), an exact re-delivery changes nothing.
+    Equal markers with different values, in the batch or against the
+    register, raise :class:`ConflictingMarker` when ``check``; with
+    ``check=False`` the result is ``(batch, conflict bitmap)`` (numpy).
+    The winners are chosen on the host; only their registers' current
+    ``(val, marker)`` are read from the device, in one gather."""
+    if bool((ops.kind != OP_SET).any()):
+        raise ValueError("apply_lww_ops folds set ops only")
+    n = batch.vals.shape[0]
+    if len(ops) == 0:
+        return batch if check else (batch, np.zeros(n, bool))
+    _in_range(ops, n)
+    # per register the lexicographic (marker, val) max: a total order, so
+    # the pick does not depend on the delivery order
+    order = np.lexsort((ops.member, ops.counter, ops.obj))
+    so, sm, sv = ops.obj[order], ops.counter[order], ops.member[order].astype(np.uint64)
+    last = np.ones(len(ops), bool)
+    last[:-1] = so[:-1] != so[1:]
+    clash = np.zeros(len(ops), bool)
+    clash[:-1] = (so[:-1] == so[1:]) & (sm[:-1] == sm[1:]) & (sv[:-1] != sv[1:])
+    w_obj, w_marker, w_val = so[last], sm[last], sv[last]
+    rows = torch.from_numpy(w_obj).to(batch.vals.device)
+    cur = torch.stack([batch.vals[rows], batch.markers[rows] ^ zero_of(torch.int64)])
+    cur_v, cur_m = cur.cpu().numpy().view(np.uint64)
+    newer = w_marker > cur_m
+    # the conflicting registers, ascending: in the batch, or against the register
+    bad = np.unique(np.concatenate([so[clash], w_obj[(w_marker == cur_m) & (w_val != cur_v)]]))
+    if check and bad.size:
+        raise ConflictingMarker(f"{bad.size} conflicting marker(s) in op fold, "
+                                f"first at {int(bad[0])}")
+    take = rows[torch.from_numpy(newer).to(rows.device)]
+    out = type(batch)(
+        vals=batch.vals.index_put((take,), torch.from_numpy(w_val[newer].view(np.int64)).to(
+            take.device)),
+        markers=batch.markers.index_put((take,), as_counters(w_marker[newer], torch.int64,
+                                                             take.device)))
+    if check:
+        return out
+    conflict = np.zeros(n, bool)
+    conflict[bad] = True
+    return out, conflict

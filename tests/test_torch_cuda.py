@@ -422,3 +422,59 @@ def test_op_loop_on_the_card_equals_the_loop_on_the_cpu(dev, bits, overlap):
         assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
     for k in ("ops", "applied", "duplicates", "still_parked"):
         assert gst[k] == wst[k], k
+
+
+def _flat_pairs(seed, dev):
+    """Two replicas of each flat type on the CPU (u64, dense counters),
+    with its wire universe and ``from_wire`` arguments."""
+    from crdt_tpu_torch import (
+        CrdtConfig, GCounterBatch, GSetBatch, LWWRegBatch, MVRegBatch, PNCounterBatch, Universe,
+        VClockBatch,
+    )
+
+    rng = np.random.RandomState(seed)
+    uni = Universe.identity(CrdtConfig(num_actors=16, mv_capacity=4))
+    n = 777
+
+    def c(*shape):
+        return rng.randint(0, 1000, size=(n, *shape)).astype(np.uint64)
+
+    def mv():
+        clocks = c(4, 16) * (np.arange(4) < 2)[None, :, None]
+        return clocks, rng.randint(1, 99, size=(n, 4)).astype(np.uint64) * clocks.any(-1)
+
+    return uni, {
+        "vclock": (lambda i: VClockBatch.from_numpy(c(16), device="cpu"), ()),
+        "gcounter": (lambda i: GCounterBatch.from_numpy(c(16), device="cpu"), ()),
+        "pncounter": (lambda i: PNCounterBatch.from_numpy(c(2, 16), device="cpu"), ()),
+        # markers unique across the two replicas: no equal-marker conflict
+        "lww": (lambda i: LWWRegBatch.from_numpy(rng.randint(0, 99, n).astype(np.uint64),
+                                                c() * 2 + np.uint64(i), device="cpu"), ()),
+        "gset": (lambda i: GSetBatch.from_numpy(rng.rand(n, 40) < 0.1, device="cpu"), (40,)),
+        "mvreg": (lambda i: MVRegBatch.from_numpy(*mv(), device="cpu"), ()),
+    }
+
+
+@pytest.mark.parametrize("kind", ["vclock", "gcounter", "pncounter", "lww", "gset", "mvreg"])
+def test_flat_types_on_the_card_equal_the_cpu(dev, kind):
+    """Each flat type's merge on the card gives the CPU's planes, and a
+    wire round on the card (``to_wire`` → ``from_wire`` → merge →
+    ``to_wire``) gives the CPU's bytes."""
+    import dataclasses
+
+    uni, types = _flat_pairs(51, dev)
+    make, extra = types[kind]
+    a, b = make(0), make(1)
+
+    def on(x, d):
+        return type(x)(*(getattr(x, f.name).to(d) for f in dataclasses.fields(x)))
+
+    want = a.merge(b)
+    got = on(a, dev).merge(on(b, dev))
+    for f in dataclasses.fields(want):
+        assert getattr(got, f.name).device.type == "cuda"
+        assert torch.equal(getattr(got, f.name).cpu(), getattr(want, f.name)), f.name
+    cls = type(a)
+    blobs = [x.to_wire(uni) for x in (a, b)]
+    back = [cls.from_wire(bl, uni, *extra, device=dev) for bl in blobs]
+    assert back[0].merge(back[1]).to_wire(uni) == want.to_wire(uni)
