@@ -75,8 +75,25 @@ Phases, in order; any failure ends the run with a nonzero exit:
    line carries every number.  The phase launches no kernel: its bodies
    are torch ops, as the JAX package's are ``jnp``.
 
+9. Map — ``Map<K, Orswot>`` and ``Map<K, MVReg>`` (65,536 objects in
+   chunks of 8,192) and ``Map<K, Map<K2, MVReg>>`` (2,048 in chunks of
+   256) at the config-default widths (A=64, K=16, M=32, D=8,
+   mv_capacity 8; u32): each chunk's R=4 replica fleets, built on the card
+   by seeded ``apply_up``/``apply_rm`` rounds (the nested maps from seeded
+   scalar maps through ``from_wire``), joined by ``JoinExecutor`` and
+   truncated by a seeded clock; the nested sets merge through the merge
+   kernel, three launches per Map merge.  Chunk 0 of each composition is
+   held against the same join on the CPU (its first 512 objects, 16 of
+   the nested maps) and, on 64 sampled objects, the port's scalar engine, and
+   makes a wire round through its codec leg (blobs ``to_binary`` of the
+   scalar result, codec share 1.0); each of the merge kernel's three
+   launches in one Map<K, Orswot> merge is held against
+   ``merge_reference`` at the nested shape it was handed and timed there,
+   and that merge is profiled once (device busy time, idle share, top
+   ops).  One ``maps`` JSON line carries the numbers.
+
 Launch counts are reset just before phase 4 and read just after, and
-again around phases 5, 6, 6b, 7 and 8.  The last lines are the kernel table
+again around phases 5, 6, 6b, 7, 8 and 9.  The last lines are the kernel table
 (JSON), the card's name and power limit, and ``{"ok": true, "device":
 ...}``.  Needs one CUDA card; exits nonzero without one.
 """
@@ -111,6 +128,14 @@ PLANES = ("clock", "ids", "dots", "d_ids", "d_clocks")
 FLAT_A, FLAT_PN_A, FLAT_N, FLAT_LWW_N, FLAT_U, FLAT_K, FLAT_MV_N = (
     64, 32, 1_000_000, 10_000_000, 1024, 8, 250_000)
 FLAT_WIRE_R, FLAT_SAMPLE, FLAT_ITERS, FLAT_FRAMES, FLAT_FRAME_OPS = 2, 2048, 5, 16, 65_536
+# the Map phase (9), u32 at the config defaults: A=64, K=16, M=32, D=8,
+# mv_capacity 8; Map<K, Orswot> and Map<K, MVReg> 65,536 objects in chunks
+# of 8,192, Map<K, Map<K2, MVReg>> 2,048 in chunks of 256; R=4 replicas of
+# 12 actors each (the base's are 0-11), built by 4 shared and 3 own op rounds
+MAP_A, MAP_K, MAP_M, MAP_D, MAP_KV = 64, 16, 32, 8, 8
+MAP_N, MAP_CHUNK, MAP_NESTED_N, MAP_NESTED_CHUNK = 65_536, 8_192, 2_048, 256
+MAP_R, MAP_ACTORS, MAP_MEMBERS, MAP_ROUNDS, MAP_SAMPLE = 4, 12, 64, (4, 3), 64
+MAP_K2_SETS = 16_384  # sets per call of the merge kernel's plain version
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 # the data sheet gives no INT32 rate: 64 INT32 lanes x 132 SMs x 1.98 GHz
 INT32_OPS_PER_S = 16.7e12
@@ -1458,6 +1483,339 @@ def flat_types(dev, card: str):
     print("flat_types " + json.dumps(report), flush=True)
 
 
+# -- phase 9 -------------------------------------------------------------------
+
+
+def map_rows(b, rows):
+    """Rows ``rows`` of a MapBatch (an index tensor or a slice)."""
+    from crdt_tpu_torch.batch.map_batch import MapBatch
+    from crdt_tpu_torch.ops.map_ops import _tree_map
+
+    return MapBatch.from_state(_tree_map(lambda x: x[rows], b.state), b.kernel)
+
+
+def map_op_fleets(uni, vk, op: str, n: int, seed: int, dev):
+    """``MAP_R`` replica fleets of ``n`` maps built on the card by seeded op
+    rounds: ``MAP_ROUNDS[0]`` rounds of ``Op::Up`` (a nested ``op`` under
+    a fresh dot of a base actor) and one of ``Op::Rm``, shared; then each
+    replica's own ``MAP_ROUNDS[1]`` up rounds and one remove round through
+    actors of its own.  A remove round removes a key under the map clock
+    in 15% of the objects and buffers one ahead of it in 10%."""
+    import torch
+
+    from crdt_tpu_torch.batch.map_batch import MapBatch
+    from crdt_tpu_torch.dtypes import zero_of
+    from crdt_tpu_torch.ops import clock_ops
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def ints(hi):
+        return torch.randint(0, hi, (n,), generator=gen, device=dev, dtype=torch.int64)
+
+    def up(b, group):
+        actor = group * MAP_ACTORS + ints(MAP_ACTORS)
+        counter = clock_ops.inc_counter(b.clock, actor)
+        if op == "apply_add":
+            args = (actor, counter, ints(MAP_MEMBERS))
+        else:  # a put whose context is the map clock: it covers the slot's values
+            args = (b.clock.scatter(-1, actor[:, None], counter[:, None]), 1 + ints(1 << 30))
+        return b.apply_up(actor, counter, ints(MAP_K), op, args)
+
+    def rm(b, group):
+        u = torch.rand(n, generator=gen, device=dev)
+        actor = (group * MAP_ACTORS + ints(MAP_ACTORS))[:, None]
+        z = zero_of(b.clock.dtype)
+        ahead = torch.full_like(b.clock, z).scatter(-1, actor, b.clock.gather(-1, actor) + 1)
+        clock = torch.where((u < 0.1)[:, None], ahead,
+                            torch.where((u < 0.25)[:, None], b.clock, z))
+        return b.apply_rm(clock, torch.where(u < 0.25, ints(MAP_K), 1 << 20))
+
+    base = MapBatch.zeros(n, uni, vk, device=dev)
+    for _ in range(MAP_ROUNDS[0]):
+        base = up(base, 0)
+    base = rm(base, 0)
+    reps = []
+    for r in range(MAP_R):
+        b = base
+        for _ in range(MAP_ROUNDS[1]):
+            b = up(b, r + 1)
+        reps.append(rm(b, r + 1))
+    return reps
+
+
+def map_wire_fleets(uni, vk, n: int, seed: int, dev):
+    """``MAP_R`` replica fleets of ``n`` nested maps: seeded scalar maps
+    (``testdata.random_map``, a shared base and each replica's own ops
+    through its own actors) through ``to_binary`` and ``from_wire``."""
+    from crdt_tpu_torch.batch.map_batch import MapBatch
+    from crdt_tpu_torch.utils.serde import to_binary
+    from crdt_tpu_torch.utils.testdata import random_map
+
+    rng = np.random.RandomState(seed)
+    kw = dict(n_keys=MAP_K, n_actors=MAP_ACTORS, rm_p=0.15)
+    base = [random_map(rng, "map", max_ops=8, **kw) for _ in range(n)]
+    return [MapBatch.from_wire(
+        [to_binary(random_map(rng, "map", m=m.clone(), max_ops=6, actor0=MAP_ACTORS * (r + 1),
+                              **kw)) for m in base], uni, vk, device=dev)
+            for r in range(MAP_R)]
+
+
+def map_truncate_clock(b, seed: int):
+    """One truncate clock per object: the map clock on ~20% of the actors
+    of half the objects, zero elsewhere."""
+    import torch
+
+    from crdt_tpu_torch.dtypes import zero_of
+
+    gen = torch.Generator(device=b.device)
+    gen.manual_seed(seed)
+    n, a = b.clock.shape
+    pick = (torch.rand((n, a), generator=gen, device=b.device) < 0.2) & (
+        torch.rand((n, 1), generator=gen, device=b.device) < 0.5)
+    return torch.where(pick, b.clock, zero_of(b.clock.dtype))
+
+
+def map_join(reps, seed: int):
+    """The Map phase's main path on one chunk: ``JoinExecutor`` folds the
+    replicas (R - 1 merges and the plunger), then a truncate."""
+    from crdt_tpu_torch import JoinExecutor, JoinStats
+
+    stats = JoinStats()
+    joined = JoinExecutor().join_all(reps, stats=stats)
+    if stats.overflow_regrows:
+        raise AssertionError(f"the Map join regrew ({stats})")
+    tclock = map_truncate_clock(joined, seed)
+    return joined.truncate(tclock), tclock
+
+
+def map_checks(name, reps, tclock, out, uni, cpu_n: int, card: str):
+    """Chunk 0 of a composition: its first ``cpu_n`` objects bit for bit
+    against the same join and truncate on the CPU, ``MAP_SAMPLE`` sampled
+    objects against the port's scalar engine, and a wire round (codec
+    share 1.0, the blobs ``to_binary`` of the scalar result)."""
+    import torch
+
+    from crdt_tpu_torch import JoinExecutor
+    from crdt_tpu_torch.batch import wirebulk
+    from crdt_tpu_torch.batch.map_batch import MapBatch, _leaves
+    from crdt_tpu_torch.batch.vclock_batch import row_to_vclock
+    from crdt_tpu_torch.dtypes import counters_to_numpy
+    from crdt_tpu_torch.ops.map_ops import _tree_map
+    from crdt_tpu_torch.utils.serde import to_binary
+
+    t0 = time.perf_counter()
+    cpu = [MapBatch.from_state(_tree_map(lambda x: x[:cpu_n].cpu(), r.state), r.kernel)
+           for r in reps]
+    want = JoinExecutor().join_all(cpu).truncate(tclock[:cpu_n].cpu())
+    for g, w in zip(_leaves(map_rows(out, slice(0, cpu_n)).state), _leaves(want.state)):
+        if not torch.equal(g.cpu(), w):
+            raise AssertionError(f"{name}: the card's join != the CPU plain path's")
+    t1 = time.perf_counter()
+    n = out.clock.shape[0]
+    rows = rows_of(np.sort(np.random.RandomState(SEED + 9).choice(n, MAP_SAMPLE, replace=False)),
+                   out.device)
+    acc = map_rows(reps[0], rows).to_scalar(uni)
+    for r in reps[1:]:
+        for s, o in zip(acc, map_rows(r, rows).to_scalar(uni)):
+            s.merge(o)
+    for s, t in zip(acc, counters_to_numpy(tclock[rows])):
+        s.merge(s.clone())
+        s.truncate(row_to_vclock(t, uni))
+    want_blobs = [to_binary(s) for s in acc]
+    if [to_binary(s) for s in map_rows(out, rows).to_scalar(uni)] != want_blobs:
+        raise AssertionError(f"{name}: the card's join != the scalar engine's on the sample")
+    t2 = time.perf_counter()
+    before = wirebulk.wire_counts("map")
+    blobs = out.to_wire(uni)
+    t3 = time.perf_counter()
+    back = MapBatch.from_wire(blobs, uni, out.kernel.val_kernel, device=out.device)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    if [blobs[i] for i in rows.tolist()] != want_blobs or back.to_wire(uni) != blobs:
+        raise AssertionError(f"{name}: the wire round's blobs differ")
+    # the round gives key slots, values and deferred rows in wire order: the
+    # bytes above hold the content, the planes the clocks and key sets
+    if not (torch.equal(back.clock, out.clock) and torch.equal(
+            back.keys.sort(-1).values, out.keys.sort(-1).values)):
+        raise AssertionError(f"{name}: from_wire(to_wire(x)) != x")
+    grew = wirebulk.counts_since(before, "map")
+    frac = {d: wirebulk.native_fraction(grew, d) for d in ("from_wire", "to_wire")}
+    if frac != {"from_wire": 1.0, "to_wire": 1.0}:
+        raise AssertionError(f"{name}: not every blob took the host codec ({grew})")
+    log(f"  {name}: first {cpu_n} objects == CPU plain path ({t1 - t0:.1f} s), {MAP_SAMPLE} "
+        f"sampled == scalar engine ({t2 - t1:.1f} s); wire round of {n} objects: encode "
+        f"{t3 - t2:.3f} s, parse {t4 - t3:.3f} s, {sum(map(len, blobs)) / n:.1f} B/object, "
+        f"codec share 1.0 [{card}]")
+    return {"cpu_check_s": t1 - t0, "sample_check_s": t2 - t1, "encode_s": t3 - t2,
+            "parse_s": t4 - t3, "wire_bytes_per_object": sum(map(len, blobs)) / n}
+
+
+def map_k2(reps, card: str):
+    """The merge kernel at the nested shapes a Map<K, Orswot> merge hands
+    it: every launch of ``reps[0].merge(reps[1])`` (the value merge, the
+    body's truncate and the deferred settle's, each an ``[N, 2K]`` batch
+    of sets) bit for bit against ``merge_reference`` on the card, with its
+    plan and its time beside the bytes bound."""
+    import torch
+
+    from crdt_tpu_torch.ops import orswot_tile as tile
+
+    seen = []
+    launch = tile.merge
+
+    def capture(*args, **kw):
+        seen.append(args)
+        return launch(*args, **kw)
+
+    # the merge body reaches the kernel through this module attribute; the
+    # capture records each launch's inputs as the main path built them
+    tile.merge = capture
+    try:
+        reps[0].merge(reps[1])
+    finally:
+        tile.merge = launch
+    what = ("value merge", "truncate", "deferred settle")
+    if len(seen) != len(what):
+        raise AssertionError(f"a Map<K, Orswot> merge launched the merge kernel {len(seen)} "
+                             f"times, not {len(what)}")
+    rows = []
+    for name, args in zip(what, seen):
+        sa, sb, (m_cap, d_cap) = args[:5], args[5:10], args[10:12]
+        got = tile.merge(*sa, *sb, m_cap, d_cap, prebiased=True)
+        shape = list(sa[0].shape[:-1])
+        n = got[0].shape[:-1].numel()
+        # the plain version's [n, M, M, A] alignment runs over set chunks
+        flat = [x.reshape(n, *x.shape[len(shape):]) for x in (*sa, *sb)]
+
+        def plain():
+            return [torch.cat(p) for p in zip(*(
+                tile.merge_reference(*(x[i:i + MAP_K2_SETS] for x in flat), m_cap, d_cap)
+                for i in range(0, n, MAP_K2_SETS)))]
+
+        err = max_abs_err([x.reshape(n, *x.shape[len(shape):]) for x in got], plain())
+        if err:
+            raise AssertionError(f"orswot_merge != merge_reference at the Map's {name} ({err})")
+        plan = tile.merge_plan(sa, sb, m_cap)
+        ms = cuda_ms(lambda: tile.merge(*sa, *sb, m_cap, d_cap, prebiased=True), 10)
+        plain_ms = cuda_ms(plain, 1)
+        in_b, out_b = nbytes(sa) + nbytes(sb), nbytes(got[:5]) + got[5].numel() * 4
+        b_ms, by = bound_ms(in_b, out_b, n * (2 * m_cap) * sa[0].shape[-1] * 12)
+        log(f"  orswot_merge at the Map's {name}, nested shape {shape} (M={sa[1].shape[-1]}, "
+            f"D={sa[3].shape[-1]}, A={sa[0].shape[-1]}): bit-equal to merge_reference, plan "
+            f"{plan}; {ms:.4f} ms kernel, {plain_ms:.3f} ms plain, bound {b_ms:.4f} ms ({by}; "
+            f"{in_b + out_b} B) [{card}]")
+        rows.append({"launch": name, "shape": shape, "plan": plan, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+                     "bytes": in_b + out_b})
+        del got
+    return rows
+
+
+def map_profile(reps, merge_ms: float, card: str):
+    """One pairwise Map merge under ``torch.profiler``: the device's busy
+    time (every kernel's), its idle share against ``merge_ms`` (the same
+    merge timed by CUDA events), the kernels launched, and the top torch
+    ops and kernels by device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    reps[0].merge(reps[1])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        reps[0].merge(reps[1])
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    kernels = [e for e in ev if e.device_type == DeviceType.CUDA]
+    ops = [e for e in ev if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+
+    def top(es):
+        es = sorted(es, key=lambda e: -e.self_device_time_total)[:10]
+        return [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in es]
+
+    out = {"busy_ms": busy or None, "idle_share": 1 - busy / merge_ms if busy else None,
+           "kernel_launches": sum(e.count for e in kernels), "top_ops": top(ops),
+           "top_kernels": top(kernels)}
+    log(f"  map_orswot merge profile: device busy {busy:.3f} ms of {merge_ms:.3f} ms "
+        f"(idle share {out['idle_share']}), {out['kernel_launches']} kernels; top ops "
+        f"{[(k, c, round(t, 3)) for k, c, t in out['top_ops']]} [{card}]")
+    return out
+
+
+def map_phase(dev, card: str):
+    """Phase 9: Map<K, Orswot>, Map<K, MVReg> and Map<K, Map<K2, MVReg>> at
+    the config-default widths (u32).  Returns the merge kernel's launches
+    on the phase's main path."""
+    import torch
+
+    from crdt_tpu_torch import (
+        CrdtConfig, MapKernel, MVRegKernel, OrswotKernel, Universe, _build,
+    )
+    from crdt_tpu_torch.batch.map_batch import _leaves
+
+    uni = Universe.identity(CrdtConfig.gpu_default(
+        num_actors=MAP_A, key_capacity=MAP_K, member_capacity=MAP_M, deferred_capacity=MAP_D,
+        mv_capacity=MAP_KV))
+    cfg = uni.config
+    comps = {
+        "map_orswot": (OrswotKernel.from_config(cfg), MAP_N, MAP_CHUNK, 512,
+                       lambda vk, n, s: map_op_fleets(uni, vk, "apply_add", n, s, dev)),
+        "map_mvreg": (MVRegKernel.from_config(cfg), MAP_N, MAP_CHUNK, 512,
+                      lambda vk, n, s: map_op_fleets(uni, vk, "apply_put", n, s, dev)),
+        "map_map_mvreg": (MapKernel.from_config(cfg, MVRegKernel.from_config(cfg)),
+                          MAP_NESTED_N, MAP_NESTED_CHUNK, 16,
+                          lambda vk, n, s: map_wire_fleets(uni, vk, n, s, dev)),
+    }
+    report, kept = {"card": card}, {}
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for k, (name, (vk, n_total, chunk, _, build)) in enumerate(comps.items()):
+        build_s, join_ms = 0.0, []
+        for c in range(n_total // chunk):
+            t0 = time.perf_counter()
+            reps = build(vk, chunk, SEED + 900 + 10 * k + c)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out, tclock = map_join(reps, SEED + 950 + 10 * k + c)
+            torch.cuda.synchronize()
+            build_s += t1 - t0
+            join_ms.append((time.perf_counter() - t1) * 1e3)
+            if c == 0:
+                kept[name] = (reps, tclock, out)
+            del reps, out
+        live = kept[name][2].len_counts().float().mean().item() / MAP_K
+        deferred = (kept[name][2].d_keys != -1).any(-1).float().mean().item()
+        report[name] = {"objects": n_total, "chunk": chunk, "replicas": MAP_R,
+                        "join_ms_per_chunk": join_ms, "build_s": build_s,
+                        "live_key_share": live, "deferred_object_share": deferred}
+        log(f"  {name}: {n_total} objects in chunks of {chunk}, R={MAP_R}: join + truncate ms "
+            f"per chunk {[round(t, 2) for t in join_ms]} (R - 1 merges and the plunger); "
+            f"fleets built in {build_s:.1f} s; {live:.2%} of the key slots live, deferred rows "
+            f"in {deferred:.2%} of objects [{card}]")
+    launches = _build.launch_counts()["orswot_merge"]
+    report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  launches {_build.launch_counts()}; peak device memory "
+        f"{report['peak_memory_gb']:.2f} GB [{card}]")
+    if launches == 0:
+        raise AssertionError("the Map phase never launched the merge kernel")
+    for name, (reps, tclock, out) in kept.items():
+        report[name].update(map_checks(name, reps, tclock, out, uni, comps[name][3], card))
+        # a merge reads two states and writes one (and one overflow flag per object)
+        state = nbytes(_leaves(reps[0].state))
+        ms = report[name]["merge_ms"] = cuda_ms(lambda: reps[0].merge(reps[1]), 3)
+        b_ms, by = bound_ms(2 * state, state + reps[0].clock.shape[0], 0)
+        report[name].update(state_bytes=state, bound_ms_per_merge=b_ms, bound_by=by)
+        log(f"  {name}: one pairwise merge of {reps[0].clock.shape[0]} objects {ms:.3f} ms "
+            f"(CUDA events), bound {b_ms:.4f} ms by {by} ({state} B per state) [{card}]")
+    report["map_orswot"]["profile"] = map_profile(
+        kept["map_orswot"][0], report["map_orswot"]["merge_ms"], card)
+    report["orswot_merge"] = map_k2(kept["map_orswot"][0], card)
+    print("maps " + json.dumps(report), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1572,12 +1930,19 @@ def main() -> int:
     flat_types(dev, card)
     log(f"  phase 8 took {time.perf_counter() - t0:.1f} s; launches {_build.launch_counts()} "
         "(the flat types' bodies are torch ops)")
+    torch.cuda.empty_cache()
+
+    log("== phase 9: Map (merge, truncate and wire rounds on the card)")
+    t0 = time.perf_counter()
+    map_k2_launches = map_phase(dev, card)
+    log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
 
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
          "wire_launches": wire_k2 if name == "orswot_merge" else 0,
          "op_launches": op_k2 if name == "orswot_merge" else 0,
+         "map_launches": map_k2_launches if name == "orswot_merge" else 0,
          "max_abs_err": worst[name], "ms": timed[name]["ms"],
          "plain_ms": timed[name]["plain_ms"], "bound_ms": timed[name]["bound_ms"],
          "bound_by": timed[name]["bound_by"], "library_ms": None}

@@ -4,7 +4,9 @@ A second package beside the JAX reference (``crdt_tpu``): dense ORSWOT
 batches held on a CUDA device, the pairwise merge and the anti-entropy
 folds; the flat types (``VClockBatch``, ``GCounterBatch``,
 ``PNCounterBatch``, ``GSetBatch``, ``LWWRegBatch``, ``MVRegBatch``) with
-their wire legs and the counter and LWW op folds, as torch ops; hand-written CUDA kernels for the three hot paths (``csrc/``),
+their wire legs and the counter and LWW op folds, as torch ops;
+``MapBatch`` over value kernels (``MVRegKernel``, ``OrswotKernel``, a
+nested ``MapKernel``), its nested sets merged by the merge kernel; hand-written CUDA kernels for the three hot paths (``csrc/``),
 the wire leg — ``OrswotBatch.from_wire``/``to_wire`` through a host
 C++ codec (``native/``) and :class:`PipelinedWireLoop`, which folds wire
 blobs on the card — and the op path (``oplog/``, :class:`PipelinedOpLoop`):
@@ -33,8 +35,8 @@ Quick start::
 """
 
 from .batch import (
-    GCounterBatch, GSetBatch, LWWRegBatch, MVRegBatch, OrswotBatch, PipelinedOpLoop,
-    PipelinedWireLoop, PNCounterBatch, VClockBatch,
+    GCounterBatch, GSetBatch, LWWRegBatch, MapBatch, MapKernel, MVRegBatch, MVRegKernel,
+    OrswotBatch, OrswotKernel, PipelinedOpLoop, PipelinedWireLoop, PNCounterBatch, VClockBatch,
 )
 from .config import CrdtConfig, MERGE_IMPLS
 from .device import resolve_device
@@ -66,9 +68,13 @@ __all__ = [
     "KernelError",
     "LWWRegBatch",
     "MERGE_IMPLS",
+    "MapBatch",
+    "MapKernel",
     "MVRegBatch",
+    "MVRegKernel",
     "OpLogOverflowError",
     "OrswotBatch",
+    "OrswotKernel",
     "PNCounterBatch",
     "PipelinedOpLoop",
     "PipelinedWireLoop",

@@ -76,6 +76,14 @@ _CODEC = (
     ("gset_encode_wire", [P, LL, LL, P, P, LL], False),
     ("lww_ingest_wire_u64", [P, P, LL, P, P, P, LL], False),
     ("lww_encode_wire_u64", [P, P, LL, P, P, LL], False),
+    # the Map legs: the map's 5 planes around its value planes (MVReg 2,
+    # Orswot 5, Map<K2, MVReg> 7), sizes (A, K, D, then the value's)
+    ("map_mvreg_ingest_wire", [P, P] + [LL] * 5 + [P] * 8 + [LL], True),
+    ("map_mvreg_encode_wire", [P] * 7 + [LL] * 5 + [P, P, LL], True),
+    ("map_orswot_ingest_wire", [P, P] + [LL] * 6 + [P] * 11 + [LL], True),
+    ("map_orswot_encode_wire", [P] * 10 + [LL] * 6 + [P, P, LL], True),
+    ("map_map_mvreg_ingest_wire", [P, P] + [LL] * 7 + [P] * 13 + [LL], True),
+    ("map_map_mvreg_encode_wire", [P] * 12 + [LL] * 7 + [P, P, LL], True),
 )
 # host library name -> (source under native/, {exported C function: argument types})
 HOST_LIBS = {

@@ -48,6 +48,14 @@ def _chunked_merge(kern, a, b):
     return (cat[0], cat[1]), cat[2]
 
 
+def mvreg_scalars(clocks, vals, universe) -> list[MVReg]:
+    """Scalar registers of unsigned numpy planes ``clocks [n, K, A]``,
+    ``vals [n, K]``."""
+    return [MVReg([(row_to_vclock(c, universe), universe.members.lookup(int(v)))
+                   for c, v in zip(cs, vs) if c.any()])
+            for cs, vs in zip(clocks, vals)]
+
+
 def _overflow_check(overflow):
     if bool(overflow.any()):
         raise CapacityOverflowError("MVReg antichain overflow: raise CrdtConfig.mv_capacity",
@@ -93,10 +101,7 @@ class MVRegBatch:
         return cls.from_numpy(*cls._host(states, universe), device=device)
 
     def to_scalar(self, universe) -> list[MVReg]:
-        clocks, vals = self.to_numpy()
-        return [MVReg([(row_to_vclock(c, universe), universe.members.lookup(int(v)))
-                       for c, v in zip(cs, vs) if c.any()])
-                for cs, vs in zip(clocks, vals)]
+        return mvreg_scalars(*self.to_numpy(), universe)
 
     @classmethod
     def from_wire(cls, blobs: Sequence[bytes], universe, device=None) -> "MVRegBatch":

@@ -565,6 +565,22 @@ class OrswotBatch:
             raise_for_overflow(overflow, "join_fleet")
         return cls(clock=clock, ids=ids, dots=dots, d_ids=d_ids, d_clocks=d_clocks)
 
+    def truncate(self, clock, check: bool = True) -> "OrswotBatch":
+        """``Causal::truncate`` (`orswot.rs:159-172`) by one clock per object
+        (unsigned ``[N, A]``; a tensor is taken as biased): the nested
+        value kernel's merge with an empty set carrying ``clock``, then
+        ``clock`` subtracted from the set clock and every member clock."""
+        from .val_kernels import OrswotKernel
+
+        kern = OrswotKernel(self.member_capacity, self.deferred_capacity, self.clock.shape[-1],
+                            self.clock.element_size() * 8)
+        (c, ids, dots, d_ids, d_clocks), overflow = kern.truncate_full(
+            (self.clock, self.ids, self.dots, self.d_ids, self.d_clocks),
+            as_counters(clock, self.clock.dtype, self.device))
+        if check:
+            raise_for_overflow(overflow, "truncate")
+        return OrswotBatch(clock=c, ids=ids, dots=dots, d_ids=d_ids, d_clocks=d_clocks)
+
     # -- op path -------------------------------------------------------------
 
     def apply_add(self, actor_idx, counter, member_id, check: bool = True) -> "OrswotBatch":

@@ -35,7 +35,7 @@ from ..native import engine
 
 WIRE_TAG_VCLOCK = 0x20  # serde.py _T_VCLOCK
 WIRE_TAG_GCOUNTER = 0x22  # serde.py _T_GCOUNTER
-LEGS = ("orswot", "vclock", "gcounter", "pncounter", "gset", "lww", "mvreg")
+LEGS = ("orswot", "vclock", "gcounter", "pncounter", "gset", "lww", "mvreg", "map")
 _DIRECTIONS = ("from_wire", "to_wire")
 _TALLY_LOCK = threading.Lock()  # the wire loop parses on a thread of its own
 _TALLY = {leg: {d: {"native": 0, "fallback": 0, "reasons": {}} for d in _DIRECTIONS}

@@ -36,6 +36,7 @@ class CrdtConfig:
     member_capacity: int = 32  # Orswot member slots per object
     deferred_capacity: int = 8  # deferred (clock, member) rows per object
     mv_capacity: int = 8  # MVReg antichain slots per register
+    key_capacity: int = 16  # Map key slots per object
     # counter width: 64 = reference parity (u64), 32 = the kernel width
     counter_bits: int = 64
 

@@ -265,3 +265,106 @@ def pncounter_encode_wire(planes):
     if two != 2:
         raise ValueError(f"PNCounter planes must be [N, 2, A], got {planes.shape}")
     return _encode(_fn("pncounter_encode_wire", planes.dtype), (planes,), (n, a), n)
+
+
+# ---- the Map legs: the map's planes around each key slot's value planes ----
+
+
+def _map_shapes(a: int, k: int, d: int, value):
+    """``(shape, holds ids)`` per plane of a Map: ``clock [a]``, ``keys
+    [k]``, ``eclocks [k, a]``, the value's planes under the key axis,
+    ``d_keys [d]``, ``d_clocks [d, a]``."""
+    return [((a,), False), ((k,), True), ((k, a), False),
+            *(((k, *s), ids) for s, ids in value), ((d,), True), ((d, a), False)]
+
+
+def _mvreg_shapes(a, kv):
+    return [((kv, a), False), ((kv,), False)]
+
+
+def _orswot_shapes(a, m, d):
+    return [((a,), False), ((m,), True), ((m, a), False), ((d,), True), ((d, a), False)]
+
+
+def _map_parse(name, buf, offsets, shapes, dtype, *lead):
+    """Run Map ingest ``name`` into fresh planes of ``shapes`` (ids filled
+    with -1, counters zeroed): ``(*planes, status)``."""
+    buf, offsets, n = _blobs(buf, offsets)
+    planes = tuple(np.full((n, *s), -1, np.int32) if ids else np.zeros((n, *s), dtype)
+                   for s, ids in shapes)
+    status = np.zeros(n, dtype=np.uint8)
+    _fn(name, dtype)(_ptr(buf), _ptr(offsets), n, *lead, *(_ptr(x) for x in planes),
+                     _ptr(status), _THREADS)
+    return (*planes, status)
+
+
+def _map_encode(name, planes, shapes_of, lead):
+    """``(buf, offsets)`` of Map encoder ``name`` over ``planes``, after
+    checking them against ``shapes_of`` (their sizes ``lead``)."""
+    planes = _contig(*planes)
+    n = planes[0].shape[0]
+    dt = _same_dtype(*(x for x in planes if x.dtype != np.int32))
+    for i, (x, (s, ids)) in enumerate(zip(planes, shapes_of, strict=True)):
+        if x.shape != (n, *s) or (x.dtype == np.int32) != ids:
+            raise ValueError(f"plane {i}: expected {'int32' if ids else dt}{(n, *s)}, got "
+                             f"{x.dtype}{x.shape}")
+    return _encode(_fn(name, dt), planes, (n, *lead), n)
+
+
+def map_mvreg_ingest_wire(buf, offsets, a: int, k: int, d: int, kv: int, dtype):
+    """Map<K, MVReg> blobs → ``(clock, keys, eclocks, vclocks [n, k, kv, a],
+    vvals [n, k, kv], d_keys, d_clocks, status)``; status 2: keys > ``k``,
+    3: deferred rows > ``d``, 4: an actor out of range, 5: an antichain
+    wider than ``kv``."""
+    return _map_parse("map_mvreg_ingest_wire", buf, offsets,
+                      _map_shapes(a, k, d, _mvreg_shapes(a, kv)), dtype, a, k, d, kv)
+
+
+def map_mvreg_encode_wire(clock, keys, eclocks, vclocks, vvals, d_keys, d_clocks):
+    """``(buf, offsets)`` of Map<K, MVReg> blobs, byte-identical to
+    ``to_binary`` of the scalar maps."""
+    (n, a), k, d, kv = clock.shape, keys.shape[1], d_keys.shape[1], vvals.shape[2]
+    return _map_encode("map_mvreg_encode_wire",
+                       (clock, keys, eclocks, vclocks, vvals, d_keys, d_clocks),
+                       _map_shapes(a, k, d, _mvreg_shapes(a, kv)), (a, k, d, kv))
+
+
+def map_orswot_ingest_wire(buf, offsets, a: int, k: int, d: int, mv: int, dv: int, dtype):
+    """Map<K, Orswot> blobs → ``(clock, keys, eclocks, vclock, vids, vdots,
+    vdids, vdclocks, d_keys, d_clocks, status)``; status 5: a value set's
+    members > ``mv`` or deferred rows > ``dv``."""
+    return _map_parse("map_orswot_ingest_wire", buf, offsets,
+                      _map_shapes(a, k, d, _orswot_shapes(a, mv, dv)), dtype, a, k, d, mv, dv)
+
+
+def map_orswot_encode_wire(clock, keys, eclocks, vclock, vids, vdots, vdids, vdclocks,
+                           d_keys, d_clocks):
+    """``(buf, offsets)`` of Map<K, Orswot> blobs."""
+    (n, a), k, d = clock.shape, keys.shape[1], d_keys.shape[1]
+    mv, dv = vids.shape[2], vdids.shape[2]
+    return _map_encode("map_orswot_encode_wire",
+                       (clock, keys, eclocks, vclock, vids, vdots, vdids, vdclocks, d_keys,
+                        d_clocks),
+                       _map_shapes(a, k, d, _orswot_shapes(a, mv, dv)), (a, k, d, mv, dv))
+
+
+def map_map_mvreg_ingest_wire(buf, offsets, a: int, k: int, d: int, k2: int, d2: int,
+                              kv: int, dtype):
+    """Map<K, Map<K2, MVReg>> blobs → the outer map's planes around the
+    inner map's (``iclock, ikeys, ieclocks, vclocks, vvals, id_keys,
+    id_clocks``, each under the outer key axis) and ``status``; status 5:
+    an inner map's keys > ``k2``, deferred rows > ``d2`` or an antichain
+    wider than ``kv``."""
+    inner = _map_shapes(a, k2, d2, _mvreg_shapes(a, kv))
+    return _map_parse("map_map_mvreg_ingest_wire", buf, offsets,
+                      _map_shapes(a, k, d, inner), dtype, a, k, d, k2, d2, kv)
+
+
+def map_map_mvreg_encode_wire(*planes):
+    """``(buf, offsets)`` of Map<K, Map<K2, MVReg>> blobs from the twelve
+    planes of :func:`map_map_mvreg_ingest_wire`."""
+    (n, a), k, d = planes[0].shape, planes[1].shape[1], planes[10].shape[1]
+    k2, d2, kv = planes[4].shape[2], planes[8].shape[2], planes[7].shape[3]
+    return _map_encode("map_map_mvreg_encode_wire", planes,
+                       _map_shapes(a, k, d, _map_shapes(a, k2, d2, _mvreg_shapes(a, kv))),
+                       (a, k, d, k2, d2, kv))

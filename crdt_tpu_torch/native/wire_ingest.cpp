@@ -986,3 +986,286 @@ void lww_encode_wire_u64(const uint64_t* vals, const uint64_t* markers,
 }
 
 }  // extern "C"
+
+// ---- the Map legs: Map<K, MVReg>, Map<K, Orswot>, Map<K, Map<K2, MVReg>> ---
+//
+//   MAP     := 0x27 valtype clock_body entries deferred
+//   valtype := 0x50 uv(len) name            (a registered class: "MVReg",
+//              | 0x51 valtype                "Orswot"; 0x51 = MapOf(inner))
+//   entries := uv n, n * ( 0x03 zz(key) clock_body VALUE )   keys ascending
+//              in encoded bytes
+//   deferred as the ORSWOT's section (clock keys -> key ids).
+//
+// The entry clock is a raw clock body (no 0x20 tag); the value arrives
+// fully tagged and is parsed and emitted by the MVReg and ORSWOT legs'
+// own routines (a nested Map's value recurses into parse_map_value).
+// Dense planes: the map's clock[A], keys[K], eclocks[K, A], d_keys[D],
+// d_clocks[D, A] around the value planes of each key slot.  Status: 0 ok,
+// 1 fallback, 2 key overflow (> K), 3 deferred overflow (> D), 4 actor out
+// of range, 5 a value's own overflow (antichain, members, deferred rows,
+// or an inner map's keys or deferred rows).  The caller hands ids filled
+// with -1 and counters zeroed; a row with a nonzero status is cleared
+// again.
+
+namespace {
+
+constexpr uint8_t kTagMap = 0x27;
+constexpr uint8_t kMVRegHdr[] = {0x50, 0x05, 'M', 'V', 'R', 'e', 'g'};
+constexpr uint8_t kOrswotHdr[] = {0x50, 0x06, 'O', 'r', 's', 'w', 'o', 't'};
+constexpr uint8_t kMapMVRegHdr[] = {0x51, 0x50, 0x05, 'M', 'V', 'R', 'e', 'g'};
+
+// a value's capacity overflow is the value's (5), never the map's (2, 3)
+inline int value_status(int st) { return st == 2 || st == 3 ? 5 : st; }
+
+// one dense plane of a leg: its base, one object's row in bytes, and
+// whether it holds ids (cleared to -1) or counters (cleared to 0)
+struct Plane {
+  void* base;
+  int64_t row_bytes;
+  bool ids;
+};
+
+void clear_row(const Plane& p, int64_t i) {
+  std::memset(static_cast<char*>(p.base) + i * p.row_bytes, p.ids ? 0xFF : 0,
+              static_cast<size_t>(p.row_bytes));
+}
+
+// one Map value from the cursor: tag, val_type header, map clock, the
+// key loop (key, raw entry clock body, one value through
+// ``parse_val(cursor, slot)``) and the deferred section
+template <typename C, typename ParseVal>
+int parse_map_value(Cursor& c, const uint8_t* hdr, size_t hdr_len, int64_t A,
+                    int64_t K, int64_t D, C* clock, int32_t* keys, C* eclocks,
+                    int32_t* d_keys, C* d_clocks, const ParseVal& parse_val) {
+  if (!c.byte(kTagMap)) return 1;
+  if (c.end - c.p < static_cast<int64_t>(hdr_len) ||
+      std::memcmp(c.p, hdr, hdr_len) != 0)
+    return 1;
+  c.p += hdr_len;
+  int st = parse_clock_body(c, A, clock);
+  if (st) return st;
+  uint64_t n;
+  if (!c.uv(&n)) return 1;
+  if (n > static_cast<uint64_t>(K)) return 2;
+  // strictly ascending keys, as to_binary emits them: a duplicate would
+  // give two live slots where the Python decode keeps one
+  uint64_t prev_key = 0;
+  for (uint64_t e = 0; e < n; ++e) {
+    uint64_t key;
+    if (!c.nonneg(&key)) return 1;
+    if (key > 0x7FFFFFFFull) return 1;
+    if (e > 0 && !varint_bytes_less(prev_key << 1, key << 1)) return 1;
+    prev_key = key;
+    keys[e] = static_cast<int32_t>(key);
+    st = parse_clock_body(c, A, eclocks + e * A);
+    if (st) return st;
+    st = parse_val(c, static_cast<int64_t>(e));
+    if (st) return st;
+  }
+  return parse_deferred_section<C>(c, A, D, d_keys, d_clocks);
+}
+
+// one Map blob: the map's own planes at object i, the value planes in
+// ``vplanes`` (for clearing), each value through ``parse_val(c, i, slot)``
+template <typename C, typename ParseVal>
+int64_t map_ingest(const uint8_t* buf, const int64_t* offsets, int64_t n,
+                   const uint8_t* hdr, size_t hdr_len, int64_t A, int64_t K,
+                   int64_t D, C* clock, int32_t* keys, C* eclocks,
+                   int32_t* d_keys, C* d_clocks, std::vector<Plane> planes,
+                   uint8_t* status, int64_t threads,
+                   const ParseVal& parse_val) {
+  const int64_t c = static_cast<int64_t>(sizeof(C));
+  planes.insert(planes.end(), {{clock, A * c, false},
+                               {keys, K * 4, true},
+                               {eclocks, K * A * c, false},
+                               {d_keys, D * 4, true},
+                               {d_clocks, D * A * c, false}});
+  return ingest_rows(
+      buf, offsets, n, status, team(threads),
+      [&](Cursor& cur, int64_t i) {
+        return parse_map_value<C>(
+            cur, hdr, hdr_len, A, K, D, clock + i * A, keys + i * K,
+            eclocks + i * K * A, d_keys + i * D, d_clocks + i * D * A,
+            [&](Cursor& cv, int64_t e) { return parse_val(cv, i, e); });
+      },
+      [&](int64_t i) {
+        for (const Plane& p : planes) clear_row(p, i);
+      });
+}
+
+// one Map value's bytes (the inverse of parse_map_value); out == nullptr
+// is the counting pass, which skips the key sort.  ``emit_val(slot, out)``
+// writes one value and returns its size.
+template <typename C, typename EmitVal>
+int64_t map_encode_one(const C* clock, const int32_t* keys, const C* eclocks,
+                       const int32_t* d_keys, const C* d_clocks,
+                       const uint8_t* hdr, size_t hdr_len, int64_t A,
+                       int64_t K, int64_t D, uint8_t* out,
+                       const EmitVal& emit_val) {
+  const bool sizing = (out == nullptr);
+  Emitter e{out};
+  std::vector<int64_t> scratch;
+  e.byte(kTagMap);
+  for (size_t i = 0; i < hdr_len; ++i) e.byte(hdr[i]);
+  emit_clock_body(e, clock, A, scratch, !sizing);
+  std::vector<int64_t> slots;
+  for (int64_t s = 0; s < K; ++s)
+    if (keys[s] != kEmpty) slots.push_back(s);
+  if (!sizing)
+    std::sort(slots.begin(), slots.end(), [&](int64_t x, int64_t y) {
+      return varint_bytes_less(
+          static_cast<uint64_t>(static_cast<uint32_t>(keys[x])) << 1,
+          static_cast<uint64_t>(static_cast<uint32_t>(keys[y])) << 1);
+    });
+  e.uv(static_cast<uint64_t>(slots.size()));
+  for (int64_t s : slots) {
+    e.tagged_nonneg(static_cast<uint64_t>(static_cast<uint32_t>(keys[s])));
+    emit_clock_body(e, eclocks + s * A, A, scratch, !sizing);
+    const int64_t m = emit_val(s, e.p);
+    if (e.p) e.p += m;
+    e.count += m;
+  }
+  emit_deferred_section(e, d_keys, d_clocks, A, D, scratch, sizing);
+  return e.count;
+}
+
+template <typename C, typename EmitVal>
+void map_encode(const C* clock, const int32_t* keys, const C* eclocks,
+                const int32_t* d_keys, const C* d_clocks, int64_t n,
+                const uint8_t* hdr, size_t hdr_len, int64_t A, int64_t K,
+                int64_t D, int64_t* offsets, uint8_t* buf, int64_t threads,
+                const EmitVal& emit_val) {
+  encode_rows(n, offsets, buf, team(threads), [&](int64_t i, uint8_t* out) {
+    return map_encode_one<C>(
+        clock + i * A, keys + i * K, eclocks + i * K * A, d_keys + i * D,
+        d_clocks + i * D * A, hdr, hdr_len, A, K, D, out,
+        [&](int64_t s, uint8_t* p) { return emit_val(i * K + s, p); });
+  });
+}
+
+}  // namespace
+
+extern "C" {
+
+#define MAP_LEGS(C, S)                                                        \
+  int64_t map_mvreg_ingest_wire_##S(                                          \
+      const uint8_t* buf, const int64_t* offsets, int64_t n, int64_t A,       \
+      int64_t K, int64_t D, int64_t KV, C* clock, int32_t* keys, C* eclocks,  \
+      C* vclocks, C* vvals, int32_t* d_keys, C* d_clocks, uint8_t* status,    \
+      int64_t threads) {                                                      \
+    return map_ingest<C>(                                                     \
+        buf, offsets, n, kMVRegHdr, sizeof(kMVRegHdr), A, K, D, clock, keys,  \
+        eclocks, d_keys, d_clocks,                                            \
+        {{vclocks, int64_t(sizeof(C)) * K * KV * A, false},                   \
+         {vvals, int64_t(sizeof(C)) * K * KV, false}},                        \
+        status, threads, [&](Cursor& c, int64_t i, int64_t e) {              \
+          const int64_t s = i * K + e;                                        \
+          return value_status(parse_mvreg_one<C>(c, KV, A, vclocks + s * KV * A, \
+                                                 vvals + s * KV));            \
+        });                                                                   \
+  }                                                                           \
+  void map_mvreg_encode_wire_##S(                                             \
+      const C* clock, const int32_t* keys, const C* eclocks,                  \
+      const C* vclocks, const C* vvals, const int32_t* d_keys,                \
+      const C* d_clocks, int64_t n, int64_t A, int64_t K, int64_t D,          \
+      int64_t KV, int64_t* offsets, uint8_t* buf, int64_t threads) {          \
+    map_encode<C>(clock, keys, eclocks, d_keys, d_clocks, n, kMVRegHdr,       \
+                  sizeof(kMVRegHdr), A, K, D, offsets, buf, threads,          \
+                  [&](int64_t s, uint8_t* p) {                                \
+                    return mvreg_encode_one<C>(vclocks + s * KV * A,          \
+                                               vvals + s * KV, KV, A, p);     \
+                  });                                                         \
+  }                                                                           \
+  int64_t map_orswot_ingest_wire_##S(                                         \
+      const uint8_t* buf, const int64_t* offsets, int64_t n, int64_t A,       \
+      int64_t K, int64_t D, int64_t MV, int64_t DV, C* clock, int32_t* keys,  \
+      C* eclocks, C* vclock, int32_t* vids, C* vdots, int32_t* vdids,         \
+      C* vdclocks, int32_t* d_keys, C* d_clocks, uint8_t* status,             \
+      int64_t threads) {                                                      \
+    const int64_t c = sizeof(C);                                              \
+    return map_ingest<C>(                                                     \
+        buf, offsets, n, kOrswotHdr, sizeof(kOrswotHdr), A, K, D, clock,      \
+        keys, eclocks, d_keys, d_clocks,                                      \
+        {{vclock, c * K * A, false},                                          \
+         {vids, 4 * K * MV, true},                                            \
+         {vdots, c * K * MV * A, false},                                      \
+         {vdids, 4 * K * DV, true},                                           \
+         {vdclocks, c * K * DV * A, false}},                                  \
+        status, threads, [&](Cursor& cur, int64_t i, int64_t e) {            \
+          const int64_t s = i * K + e;                                        \
+          return value_status(parse_orswot_value<C>(                          \
+              cur, A, MV, DV, vclock + s * A, vids + s * MV,                  \
+              vdots + s * MV * A, vdids + s * DV, vdclocks + s * DV * A));    \
+        });                                                                   \
+  }                                                                           \
+  void map_orswot_encode_wire_##S(                                            \
+      const C* clock, const int32_t* keys, const C* eclocks,                  \
+      const C* vclock, const int32_t* vids, const C* vdots,                   \
+      const int32_t* vdids, const C* vdclocks, const int32_t* d_keys,         \
+      const C* d_clocks, int64_t n, int64_t A, int64_t K, int64_t D,          \
+      int64_t MV, int64_t DV, int64_t* offsets, uint8_t* buf,                 \
+      int64_t threads) {                                                      \
+    map_encode<C>(clock, keys, eclocks, d_keys, d_clocks, n, kOrswotHdr,      \
+                  sizeof(kOrswotHdr), A, K, D, offsets, buf, threads,         \
+                  [&](int64_t s, uint8_t* p) {                                \
+                    return encode_one<C>(vclock + s * A, vids + s * MV,       \
+                                         vdots + s * MV * A, vdids + s * DV,  \
+                                         vdclocks + s * DV * A, A, MV, DV, p); \
+                  });                                                         \
+  }                                                                           \
+  int64_t map_map_mvreg_ingest_wire_##S(                                      \
+      const uint8_t* buf, const int64_t* offsets, int64_t n, int64_t A,       \
+      int64_t K, int64_t D, int64_t K2, int64_t D2, int64_t KV, C* clock,     \
+      int32_t* keys, C* eclocks, C* iclock, int32_t* ikeys, C* ieclocks,      \
+      C* vclocks, C* vvals, int32_t* id_keys, C* id_clocks, int32_t* d_keys,  \
+      C* d_clocks, uint8_t* status, int64_t threads) {                        \
+    const int64_t c = sizeof(C);                                              \
+    return map_ingest<C>(                                                     \
+        buf, offsets, n, kMapMVRegHdr, sizeof(kMapMVRegHdr), A, K, D, clock,  \
+        keys, eclocks, d_keys, d_clocks,                                      \
+        {{iclock, c * K * A, false},                                          \
+         {ikeys, 4 * K * K2, true},                                           \
+         {ieclocks, c * K * K2 * A, false},                                   \
+         {vclocks, c * K * K2 * KV * A, false},                               \
+         {vvals, c * K * K2 * KV, false},                                     \
+         {id_keys, 4 * K * D2, true},                                         \
+         {id_clocks, c * K * D2 * A, false}},                                 \
+        status, threads, [&](Cursor& cur, int64_t i, int64_t e) {            \
+          const int64_t s = i * K + e;                                        \
+          return value_status(parse_map_value<C>(                             \
+              cur, kMVRegHdr, sizeof(kMVRegHdr), A, K2, D2, iclock + s * A,   \
+              ikeys + s * K2, ieclocks + s * K2 * A, id_keys + s * D2,        \
+              id_clocks + s * D2 * A, [&](Cursor& cv, int64_t e2) {           \
+                const int64_t t = s * K2 + e2;                                \
+                return value_status(parse_mvreg_one<C>(                       \
+                    cv, KV, A, vclocks + t * KV * A, vvals + t * KV));        \
+              }));                                                            \
+        });                                                                   \
+  }                                                                           \
+  void map_map_mvreg_encode_wire_##S(                                         \
+      const C* clock, const int32_t* keys, const C* eclocks,                  \
+      const C* iclock, const int32_t* ikeys, const C* ieclocks,               \
+      const C* vclocks, const C* vvals, const int32_t* id_keys,               \
+      const C* id_clocks, const int32_t* d_keys, const C* d_clocks,           \
+      int64_t n, int64_t A, int64_t K, int64_t D, int64_t K2, int64_t D2,     \
+      int64_t KV, int64_t* offsets, uint8_t* buf, int64_t threads) {          \
+    map_encode<C>(                                                            \
+        clock, keys, eclocks, d_keys, d_clocks, n, kMapMVRegHdr,              \
+        sizeof(kMapMVRegHdr), A, K, D, offsets, buf, threads,                 \
+        [&](int64_t s, uint8_t* p) {                                          \
+          return map_encode_one<C>(                                           \
+              iclock + s * A, ikeys + s * K2, ieclocks + s * K2 * A,          \
+              id_keys + s * D2, id_clocks + s * D2 * A, kMVRegHdr,            \
+              sizeof(kMVRegHdr), A, K2, D2, p, [&](int64_t s2, uint8_t* p2) { \
+                const int64_t t = s * K2 + s2;                                \
+                return mvreg_encode_one<C>(vclocks + t * KV * A,              \
+                                           vvals + t * KV, KV, A, p2);        \
+              });                                                             \
+        });                                                                   \
+  }
+
+MAP_LEGS(uint32_t, u32)
+MAP_LEGS(uint64_t, u64)
+#undef MAP_LEGS
+
+}  // extern "C"

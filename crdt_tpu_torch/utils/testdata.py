@@ -213,3 +213,40 @@ def build_fleet_planes(cols, *, a, m_cap, d, base, novel, device=None):
         torch.full((), ZERO32, dtype=torch.int32, device=dev),
     )
     return clock, ids, dots, d_ids, d_clocks
+
+
+def random_map(rng, val: str = "mvreg", m=None, n_keys=5, n_actors=6, max_ops=10, rm_p=0.3,
+               counters=(1, 2, 3, 4, 5), max_val=9, actor0=0):
+    """Random op-built scalar ``Map<int, V>`` (`test/map.rs:13-46` idiom),
+    ``V`` an MVReg (``val="mvreg"``), an Orswot (``"orswot"``) or a
+    ``Map<int, MVReg>`` (``"map"``); ``m`` continues an existing map.  Each
+    op is a Map remove (probability ``rm_p``) or an update under a dot of
+    a random actor in ``[actor0, actor0 + n_actors)`` and a counter drawn
+    from ``counters``: a put, an add or
+    a nested remove, and in a nested map a put or an inner remove.
+    Removes ahead of the clock are buffered as deferred rows."""
+    from ..scalar.map import Map, Rm, Up
+    from ..scalar.mvreg import MVReg, Put
+    from ..scalar.orswot import Add, Orswot, Rm as SetRm
+    from ..scalar.vclock import Dot
+    from .serde import MapOf
+
+    if m is None:
+        m = Map({"mvreg": MVReg, "orswot": Orswot, "map": MapOf(MVReg)}[val])
+    for _ in range(int(rng.randint(0, max_ops + 1))):
+        actor, key = actor0 + int(rng.randint(n_actors)), int(rng.randint(n_keys))
+        dot = Dot(actor, int(counters[rng.randint(len(counters))]))
+        clock, x, nested_rm = dot.to_vclock(), int(rng.randint(max_val)), rng.rand() < 0.3
+        if rng.rand() < rm_p:
+            m.apply(Rm(clock=clock, key=key))
+            continue
+        if val == "mvreg":
+            op = Put(clock=clock, val=x)
+        elif val == "orswot":
+            op = SetRm(clock=clock, member=x) if nested_rm else Add(dot=dot, member=x)
+        else:
+            ikey = int(rng.randint(n_keys))
+            op = Rm(clock=clock, key=ikey) if nested_rm else Up(
+                dot=dot, key=ikey, op=Put(clock=clock, val=x))
+        m.apply(Up(dot=dot, key=key, op=op))
+    return m

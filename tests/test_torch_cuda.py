@@ -478,3 +478,49 @@ def test_flat_types_on_the_card_equal_the_cpu(dev, kind):
     blobs = [x.to_wire(uni) for x in (a, b)]
     back = [cls.from_wire(bl, uni, *extra, device=dev) for bl in blobs]
     assert back[0].merge(back[1]).to_wire(uni) == want.to_wire(uni)
+
+
+@pytest.mark.parametrize("kind", ["mvreg", "orswot", "map"])
+@pytest.mark.parametrize("bits", [32, 64])
+def test_map_merge_on_the_card_equals_the_cpu(dev, kind, bits):
+    """A Map merge (both ways), truncate, ``apply_up`` and ``apply_rm`` on
+    the card give the CPU's planes; a 32-bit ``Map<K, Orswot>`` launches
+    the merge kernel for its nested sets (a 64-bit one takes ``rank``)."""
+    import warnings
+
+    from crdt_tpu_torch import CrdtConfig, MapBatch, MapKernel, MVRegKernel, OrswotKernel, Universe
+    from crdt_tpu_torch.batch.map_batch import _leaves
+    from crdt_tpu_torch.ops.map_ops import _tree_map
+    from crdt_tpu_torch.utils.testdata import random_map
+
+    uni = Universe.identity(CrdtConfig(num_actors=8, member_capacity=16, deferred_capacity=24,
+                                       mv_capacity=16, key_capacity=6, counter_bits=bits))
+    cfg = uni.config
+    vk = {"mvreg": MVRegKernel.from_config(cfg), "orswot": OrswotKernel.from_config(cfg),
+          "map": MapKernel.from_config(cfg, MVRegKernel.from_config(cfg))}[kind]
+    rng = np.random.RandomState(bits)
+    top = 1 << (bits - 1)
+    kw = dict(n_keys=6, n_actors=8, counters=(1, 2, 3, top, top + 1))
+    base = [random_map(rng, kind, **kw) for _ in range(48)]
+    a, b = ([random_map(rng, kind, m=m.clone(), **kw) for m in base] for _ in range(2))
+    cpu = [MapBatch.from_scalar(x, uni, vk, device="cpu") for x in (a, b)]
+    card = [MapBatch.from_state(_tree_map(lambda t: t.to(dev), x.state), x.kernel) for x in cpu]
+
+    def same(got, want):
+        g, w = _leaves(got.state), _leaves(want.state)
+        assert len(g) == len(w) and all(torch.equal(x.cpu(), y) for x, y in zip(g, w))
+
+    _build.reset_launch_counts()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # 64-bit nested sets take rank, with a warning
+        for x, y in ((0, 1), (1, 0)):
+            want = cpu[x].merge(cpu[y], check=False)
+            got = card[x].merge(card[y], check=False)
+            same(got, want)
+        t = np.asarray(want.to_numpy()[0]) * (rng.rand(48, 8) < 0.3)
+        same(got.truncate(t), want.truncate(t))
+        key = rng.randint(0, 7, size=48).astype(np.int32)
+        same(card[0].apply_rm(t, key, check=False), cpu[0].apply_rm(t, key, check=False))
+    launched = _build.launch_counts()["orswot_merge"]
+    assert launched > 0 if (kind, bits) == ("orswot", 32) else launched == 0
+    assert got.to_wire(uni) == want.to_wire(uni)

@@ -218,7 +218,7 @@ def test_non_identity_universes_take_the_python_codec(leg, bits):
 def test_wire_counts_are_kept_per_leg():
     _, uni = _universes(64)
     snap = {leg: wirebulk.wire_counts(leg) for leg in wirebulk.LEGS}
-    assert set(wirebulk.LEGS) == {"orswot", *LEGS}
+    assert set(wirebulk.LEGS) == {"orswot", "map", *LEGS}
     GCounterBatch.zeros(3, uni, device="cpu").to_wire(uni)
     for leg in wirebulk.LEGS:
         grew = wirebulk.counts_since(snap[leg], leg)["to_wire"]["native"]

@@ -50,12 +50,16 @@ def test_port_file_imports_neither_jax_nor_jax_package(path):
 def test_scan_covers_every_module():
     names = {p.name for p in PORT_FILES}
     assert {"orswot_ops.py", "orswot_tile.py", "orswot_fold_aligned.py", "executor.py",
-            "orswot_batch.py", "_build.py", "chip_smoke.py"} <= names
+            "orswot_batch.py", "_build.py", "chip_smoke.py", "map_ops.py", "map_batch.py",
+            "val_kernels.py"} <= names
 
 
-@pytest.mark.parametrize("entry", ["resolve_device", "from_numpy", "zeros", "build_fleet_planes"])
+@pytest.mark.parametrize("entry", ["resolve_device", "from_numpy", "zeros", "build_fleet_planes",
+                                   "map_zeros", "map_from_scalar"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(entry, monkeypatch):
-    from crdt_tpu_torch import CrdtConfig, DeviceUnavailableError, OrswotBatch, Universe
+    from crdt_tpu_torch import (
+        CrdtConfig, DeviceUnavailableError, MapBatch, MVRegKernel, OrswotBatch, Universe,
+    )
     from crdt_tpu_torch.device import resolve_device
     from crdt_tpu_torch.utils.testdata import build_fleet_planes, fleet_columns
 
@@ -73,6 +77,9 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(entry, monkeypatc
         "build_fleet_planes": lambda: build_fleet_planes(
             fleet_columns(np.random.RandomState(0), 4, 4, 4, 1, 2, base=1, novel=1),
             a=4, m_cap=4, d=1, base=1, novel=1),
+        "map_zeros": lambda: MapBatch.zeros(3, uni, MVRegKernel.from_config(uni.config)),
+        "map_from_scalar": lambda: MapBatch.from_scalar([], uni,
+                                                        MVRegKernel.from_config(uni.config)),
     }
     with pytest.raises(DeviceUnavailableError, match="cuda"):
         calls[entry]()
