@@ -92,14 +92,39 @@ Phases, in order; any failure ends the run with a nonzero exit:
    and that merge is profiled once (device busy time, idle share, top
    ops).  One ``maps`` JSON line carries the numbers.
 
+10. sync and GC — two replicas of 1.25M objects at the north-star widths
+   (``bench.py::bench_sync``'s shape: ``anti_entropy_fleets(base=4,
+   novel=0, deferred_frac=0.25)`` in 62,500-object chunks, one plunger
+   self-merge), each with one add on its own seeded 1% of the rows; the
+   digests of both (CUDA events, beside their bytes bound), both digest
+   trees and ``simulate_descent``, whose set must equal
+   ``diverged_indices`` and the planted rows; the delta exchange both
+   ways (``gather_blobs`` → delta frame → decode →
+   ``OrswotDeltaApplier.apply``, the merge kernel on the diverged rows),
+   after which the digests must agree, each replica must equal the merge
+   kernel's full-fleet merge of the two, 64 sampled rows must equal the
+   scalar engine, and the delta frame must stay at or under 0.10 of the
+   full state's ``to_wire`` bytes; one replica regrown to M=32, D=8 and
+   collected by ``GcEngine`` (watermark from both version vectors,
+   settle, repack to M=16, D=2, an op log of 4 frames of 65,536 ops
+   compacted), whose reclaimed bytes must equal the planes' difference
+   and whose join with the other replica must digest as the un-collected
+   join; ``truncate_orswot`` at the watermark on one chunk against the
+   plain (rank) path.  Every launch of the merge kernel in the phase is
+   held against ``merge_reference``.  One ``sync_gc`` JSON line carries
+   the numbers.
+
 Launch counts are reset just before phase 4 and read just after, and
-again around phases 5, 6, 6b, 7, 8 and 9.  The last lines are the kernel table
+again around phases 5, 6, 6b, 7, 8 and 9, and around each step of
+phase 10's main path (the replicas' plunger, the exchange, the GC pass
+and the truncate; the checks between them are not counted).  The last lines are the kernel table
 (JSON), the card's name and power limit, and ``{"ok": true, "device":
 ...}``.  Needs one CUDA card; exits nonzero without one.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -1816,6 +1841,328 @@ def map_phase(dev, card: str):
     return launches
 
 
+# -- phase 10 ------------------------------------------------------------------
+
+# sync and GC: bench.py::bench_sync's replica shape (base=4, novel=0,
+# deferred_frac=0.25, one plunger self-merge) at the north-star widths and
+# fleet; each replica diverges on its own seeded 1% of the rows; GC regrows
+# one replica to M=32, D=8 and compacts an op log of 4 frames of 65,536 ops
+SYNC_BASE, SYNC_DIV, SYNC_SAMPLE, SYNC_DONE_BAR = 4, 0.01, 64, 0.10
+GC_M, GC_D, GC_FRAMES, GC_FRAME_OPS = 32, 8, 4, 65_536
+K2_CHECK_CELLS = 1 << 29  # [sets, m_cap, Ma + Mb, A] cells per plain-merge check
+
+
+class K2Launches:
+    """While installed, records every launch of the merge kernel's wrapper
+    with its inputs and outputs; :meth:`check` holds each recorded launch
+    against ``merge_reference`` (row chunks: the merge is row-independent)
+    and forgets it."""
+
+    def __enter__(self):
+        from crdt_tpu_torch.ops import orswot_tile
+
+        self.tile, self.launch, self.seen, self.checked = orswot_tile, orswot_tile.merge, [], []
+
+        def capture(*args, **kw):
+            out = self.launch(*args, **kw)
+            self.seen.append((args, out))
+            return out
+
+        # orswot_ops.merge reaches the kernel through this module attribute
+        orswot_tile.merge = capture
+        return self
+
+    def __exit__(self, *exc):
+        self.tile.merge = self.launch
+
+    def check(self, what: str):
+        for args, out in self.seen:
+            sa, sb, (m_cap, d_cap) = args[:5], args[5:10], args[10:12]
+            n, a = sa[0].shape[0], sa[0].shape[-1]
+            step = max(1, K2_CHECK_CELLS // (m_cap * (sa[1].shape[-1] + sb[1].shape[-1]) * a))
+            for s in range(0, n, step):
+                want = self.tile.merge_reference(*(x[s:s + step] for x in (*sa, *sb)), m_cap,
+                                                 d_cap)
+                if max_abs_err([x[s:s + step] for x in out], want):
+                    raise AssertionError(f"{what}: the merge kernel != merge_reference at "
+                                         f"sets {s}+ of a [{n}, M={sa[1].shape[-1]}|"
+                                         f"{sb[1].shape[-1]}] launch")
+            self.checked.append([n, sa[1].shape[-1], sb[1].shape[-1], m_cap, d_cap])
+        self.seen.clear()
+
+
+def timed_ms(fn):
+    """``(fn(), device ms by CUDA events, wall ms)``."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
+def sync_replicas(dev, rng):
+    """Replica P (62,500-object chunks of ``anti_entropy_fleets``, one
+    plunger self-merge) and replica Q = P; then each takes one add on its
+    own seeded 1% of the rows.  Returns ``(P, Q, rows_p, rows_q, seconds)``."""
+    import torch
+
+    from crdt_tpu_torch import OrswotBatch
+    from crdt_tpu_torch.sync import delta
+    from crdt_tpu_torch.utils.testdata import anti_entropy_fleets
+
+    t0 = time.perf_counter()
+    parts = []
+    for _ in range(N_TOTAL // CHUNK):
+        (planes,) = anti_entropy_fleets(rng, CHUNK, A, M, D, 1, base=SYNC_BASE, novel=0,
+                                        deferred_frac=DEFERRED_FRAC)
+        parts.append(OrswotBatch.from_numpy(*planes, device=dev))
+    built = OrswotBatch(*(torch.cat([getattr(b, k) for b in parts]) for k in PLANES))
+    del parts
+    base = built.merge(built)
+    k = int(N_TOTAL * SYNC_DIV)
+
+    def diverge(actor, member):
+        rows = np.sort(rng.choice(N_TOTAL, k, replace=False))
+        idx = rows_of(rows, dev)
+        sub = delta.take_rows(base, idx)
+        full = torch.full((k,), actor, device=dev)
+        # the biased order is the unsigned one: max + 1 is the next dot
+        sub = sub.apply_add(full, sub.clock.amax(dim=-1) + 1, torch.full_like(full, member))
+        return delta.put_rows(base, idx, sub), rows
+
+    (p, rows_p), (q, rows_q) = diverge(1, 1 << 20), diverge(0, 1 << 21)
+    torch.cuda.synchronize()
+    return p, q, rows_p, rows_q, time.perf_counter() - t0
+
+
+def exchange(local, peer, ids, applier, uni):
+    """One direction of the delta exchange through the user's entry
+    points: ``gather_blobs`` on the peer, a delta frame, its decode, and
+    ``OrswotDeltaApplier.apply``.  Returns the new batch, the frame and the
+    step seconds (the applier's own: parse, H2D, gather + merge kernel,
+    scatter)."""
+    from crdt_tpu_torch.sync import delta
+
+    t0 = time.perf_counter()
+    blobs = delta.gather_blobs(peer, ids, uni)
+    t1 = time.perf_counter()
+    frame = delta.encode_delta_frame(peer.clock.shape[0], ids, blobs)
+    _, payload = delta.decode_frame(frame)
+    fleet_n, got_ids, got_blobs = delta.decode_delta_payload(payload)
+    t2 = time.perf_counter()
+    if fleet_n != local.clock.shape[0] or not np.array_equal(got_ids, ids) or got_blobs != blobs:
+        raise AssertionError("the delta frame did not round-trip")
+    steps = {"gather_encode_s": t1 - t0, "frame_s": t2 - t1}
+    new = applier.apply(local, got_ids, got_blobs, seconds=steps)
+    steps["apply_s"] = time.perf_counter() - t2
+    return new, frame, steps
+
+
+def exchange_checks(p, q, p_new, q_new, ids, frames, uni, rng, k2, card: str) -> dict:
+    """The exchange's checks: each replica equals the merge kernel's
+    full-fleet merge of the two (local first), sampled rows equal the
+    scalar engine, and the larger delta frame stays under the done-bar of
+    the full state's ``to_wire`` bytes."""
+    from crdt_tpu_torch import OrswotBatch
+    from crdt_tpu_torch.sync import delta
+    from crdt_tpu_torch.utils.serde import from_binary, to_binary
+
+    out = {}
+    k2.check("the delta applier")
+    for got, (x, y), what in ((p_new, (p, q), "P"), (q_new, (q, p), "Q")):
+        same_planes(got, x.merge(y), f"{what} after the exchange against K2's full-fleet merge")
+        k2.check("the full-fleet merge")
+    sample = np.sort(rng.choice(ids, SYNC_SAMPLE, replace=False))
+    blobs = {k: delta.gather_blobs(b, sample, uni) for k, b in
+             (("p", p), ("q", q), ("p_new", p_new), ("q_new", q_new))}
+    for mine, theirs, new in (("p", "q", "p_new"), ("q", "p", "q_new")):
+        for i in range(SYNC_SAMPLE):
+            s = from_binary(blobs[mine][i])
+            s.merge(from_binary(blobs[theirs][i]))
+            if to_binary(s) != blobs[new][i]:
+                raise AssertionError(f"{new} != the scalar engine at object {sample[i]}")
+    t0 = time.perf_counter()
+    full_bytes = sum(sum(map(len, OrswotBatch(*(getattr(p, k)[s:s + CHUNK] for k in PLANES))
+                             .to_wire(uni))) for s in range(0, N_TOTAL, CHUNK))
+    out["full_state_bytes"] = full_bytes
+    out["delta_ratio"] = max(map(len, frames)) / full_bytes
+    if out["delta_ratio"] > SYNC_DONE_BAR:
+        raise AssertionError(f"delta_ratio {out['delta_ratio']:.4f} > {SYNC_DONE_BAR}")
+    log(f"  after the exchange: P == merge(P, Q) and Q == merge(Q, P) (K2, full fleet), "
+        f"{SYNC_SAMPLE} sampled rows == the scalar engine; full state {full_bytes} B "
+        f"(encoded in {time.perf_counter() - t0:.1f} s), delta_ratio "
+        f"{out['delta_ratio']:.5f} [{card}]")
+    return out
+
+
+def sync_gc_phase(dev, card: str):
+    """Phase 10: delta anti-entropy between two 1.25M-object replicas and
+    a causal-GC pass (A=64, M=16, D=2, u32).  Returns the merge kernel's
+    launches on the phase's main path (the plunger, the two applies, the
+    reference truncate)."""
+    import torch
+
+    from crdt_tpu_torch import (
+        CrdtConfig, GcEngine, GcPolicy, OrswotBatch, OrswotDeltaApplier, OrswotKernel, Universe,
+        _build,
+    )
+    from crdt_tpu_torch.dtypes import as_counters
+    from crdt_tpu_torch.gc import compact
+    from crdt_tpu_torch.obs import convergence
+    from crdt_tpu_torch.oplog import OP_ADD, OpApplier, OpBatch, OpLog, decode_ops_frame
+    from crdt_tpu_torch.oplog import encode_ops_frame
+    from crdt_tpu_torch.sync import delta, digest, tree
+    from crdt_tpu_torch.utils.testdata import plant_dominated_deferred
+
+    uni = Universe.identity(CrdtConfig.gpu_default(num_actors=A, member_capacity=M,
+                                                   deferred_capacity=D))
+    rng = np.random.RandomState(SEED + 10)
+    rep = {"card": card, "objects": N_TOTAL, "shape": [A, M, D], "divergence": SYNC_DIV}
+    torch.cuda.reset_peak_memory_stats()
+    launches = 0
+    with K2Launches() as k2:
+        # 1. two replicas
+        _build.reset_launch_counts()
+        p, q, rows_p, rows_q, rep["build_s"] = sync_replicas(dev, rng)
+        launches += _build.launch_counts()["orswot_merge"]
+        k2.check("the plunger")
+        torch.cuda.empty_cache()
+        planted = np.union1d(rows_p, rows_q)
+        fleet_bytes = nbytes([getattr(p, k) for k in PLANES])
+        log(f"  replicas: {N_TOTAL} objects each, {fleet_bytes / 1e9:.3f} GB of planes, "
+            f"{len(rows_p)} + {len(rows_q)} rows diverged by one add each ({len(planted)} "
+            f"distinct), built in {rep['build_s']:.1f} s")
+
+        # 2. find the diverged rows: digests, trees, descent
+        _build.reset_launch_counts()
+        d_p, ms_p, wall_p = timed_ms(lambda: digest.digest_of(p, uni))
+        d_q, ms_q, wall_q = timed_ms(lambda: digest.digest_of(q, uni))
+        (t_p, t_q), tree_ms, _ = timed_ms(lambda: (tree.build_tree(d_p, device=dev),
+                                                   tree.build_tree(d_q, device=dev)))
+        t0 = time.perf_counter()
+        found, stats = tree.simulate_descent(t_p, t_q)
+        descent_ms = (time.perf_counter() - t0) * 1e3
+        ids = delta.diverged_indices(d_p, d_q)
+        if not (np.array_equal(found, ids) and np.array_equal(ids, planted)):
+            raise AssertionError(f"descent {found.size}, diverged {ids.size} and planted "
+                                 f"{planted.size} rows disagree")
+        b_ms, _ = bound_ms(fleet_bytes, 8 * N_TOTAL, 0)
+        rep.update(digest_ms=[ms_p, ms_q], digest_wall_ms=[wall_p, wall_q],
+                   digest_bound_ms=b_ms, tree_build_ms_both=tree_ms, descent_ms=descent_ms,
+                   descent=dataclasses.asdict(stats), diverged=int(ids.size))
+        log(f"  digests: {ms_p:.2f} / {ms_q:.2f} ms per fleet (CUDA events; wall {wall_p:.1f} / "
+            f"{wall_q:.1f} ms), bytes bound {b_ms:.3f} ms; trees {tree_ms:.2f} ms for both; "
+            f"descent {descent_ms:.1f} ms, {stats.levels} levels, {stats.payload_bytes} B per "
+            f"side: {ids.size} rows == diverged_indices == the planted rows [{card}]")
+
+        # 3. the exchange, both ways, and the verify
+        p_new, frame_q, steps_p = exchange(p, q, ids, OrswotDeltaApplier(uni), uni)
+        q_new, frame_p, steps_q = exchange(q, p, ids, OrswotDeltaApplier(uni), uni)
+        if not np.array_equal(digest.digest_of(p_new, uni), digest.digest_of(q_new, uni)):
+            raise AssertionError("the replicas' digests differ after the exchange")
+        launches += _build.launch_counts()["orswot_merge"]
+        rep.update(into_p=steps_p, into_q=steps_q, frame_bytes=[len(frame_q), len(frame_p)])
+        log(f"  exchange: into P {steps_p}, into Q {steps_q}; delta frames {len(frame_q)} / "
+            f"{len(frame_p)} B; digests equal after [{card}]")
+
+        rep.update(exchange_checks(p, q, p_new, q_new, ids, (frame_q, frame_p), uni, rng, k2,
+                                   card))
+        chunk = OrswotBatch(*(getattr(p_new, k)[:CHUNK].clone() for k in PLANES))
+        del p_new, q_new
+        torch.cuda.empty_cache()
+
+        # 4. GC: Q regrown as after a burst, the watermark from both vectors
+        _build.reset_launch_counts()
+        big = q.with_capacity(GC_M, GC_D)
+        del q
+        # tombstones to settle: dominated deferred removes on a seeded 1% of
+        # the rows, a tenth of them duplicated
+        k = int(N_TOTAL * SYNC_DIV)
+        tombs = plant_dominated_deferred(big, np.sort(rng.choice(N_TOTAL, k, replace=False)),
+                                         dup=k // 10)
+        trk = convergence.tracker()
+        trk.reset()
+        trk.observe_version_vector("p", digest.version_vector(p))
+        trk.observe_version_vector("q", digest.version_vector(big))
+        oplog = OpLog(uni, capacity=GC_FRAMES * GC_FRAME_OPS)
+        for _ in range(GC_FRAMES):
+            ops = OpBatch(kind=np.full(GC_FRAME_OPS, OP_ADD, np.uint8),
+                          obj=rng.randint(0, N_TOTAL, GC_FRAME_OPS),
+                          actor=rng.randint(0, A, GC_FRAME_OPS),
+                          counter=rng.randint(1, 200, GC_FRAME_OPS),
+                          member=rng.randint(0, 1 << 24, GC_FRAME_OPS))
+            oplog.append(decode_ops_frame(encode_ops_frame(ops), num_actors=A))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gcd, report = GcEngine(GcPolicy(interval_rounds=1), tracker=trk).collect(
+            big, universe=uni, oplog=oplog, applier=OpApplier(uni), peers=["p", "q"])
+        torch.cuda.synchronize()
+        gc_s = time.perf_counter() - t0
+        # 6. the reference truncate at the watermark, one chunk
+        wm = report.watermark.clock
+        trunc, trunc_ms, _ = timed_ms(lambda: compact.truncate_orswot(chunk, wm))
+        launches += _build.launch_counts()["orswot_merge"]
+
+        plane_diff = nbytes([getattr(big, k) for k in PLANES]) - nbytes(
+            [getattr(gcd, k) for k in PLANES])
+        if (report.member_capacity, report.deferred_capacity) != ((GC_M, M), (GC_D, D)):
+            raise AssertionError(f"GC shrank to {report.member_capacity}, "
+                                 f"{report.deferred_capacity}")
+        if report.tombstones_cleared < tombs + k // 10 or report.members_freed < tombs:
+            raise AssertionError(f"GC cleared {report.tombstones_cleared} tombstones and freed "
+                                 f"{report.members_freed} members of {tombs} planted rows")
+        if report.reclaimed_bytes - report.oplog_bytes_reclaimed != plane_diff:
+            raise AssertionError(f"reclaimed {report.reclaimed_bytes} B != the planes' "
+                                 f"{plane_diff} B + the op log's")
+        rep["gc"] = {"seconds": report.seconds, "wall_s": gc_s,
+                     "tombstone_rows_planted": tombs, "duplicates_planted": k // 10,
+                     "tombstones_cleared": report.tombstones_cleared,
+                     "members_freed": report.members_freed,
+                     "member_capacity": report.member_capacity,
+                     "deferred_capacity": report.deferred_capacity,
+                     "reclaimed_bytes": report.reclaimed_bytes,
+                     "plane_bytes_reclaimed": plane_diff,
+                     "oplog_ops": GC_FRAMES * GC_FRAME_OPS,
+                     "oplog_ops_dropped": report.oplog_ops_dropped,
+                     "watermark_max_counter": report.watermark.max_counter,
+                     "watermark_peers": report.watermark.peers, "truncate_ms": trunc_ms}
+        log(f"  GC pass over Q regrown to M={GC_M}, D={GC_D}: {gc_s:.3f} s (steps "
+            f"{ {step: round(v, 4) for step, v in report.seconds.items()} }); tombstones cleared "
+            f"{report.tombstones_cleared} ({tombs} rows planted, {k // 10} duplicated), members "
+            f"freed {report.members_freed}, shrink {report.member_capacity} / "
+            f"{report.deferred_capacity}, {plane_diff} plane bytes reclaimed, "
+            f"{report.oplog_ops_dropped} of {GC_FRAMES * GC_FRAME_OPS} logged ops dropped "
+            f"below the watermark (max counter {report.watermark.max_counter}) [{card}]")
+
+        # 5. the GC property at full width
+        want = digest.digest_of(big.merge(p), uni)
+        k2.check("merge(Q, P)")
+        got = digest.digest_of(gcd.merge(p), uni)
+        k2.check("merge(GC'd Q, P)")
+        if not np.array_equal(got, want):
+            raise AssertionError("merge(GC'd Q, P) and merge(Q, P) digest differently")
+        # 6. the truncate against the plain path (the rank merge, on the card)
+        kern = OrswotKernel(M, D, A, 32, merge_impl="rank")
+        clock = as_counters(np.broadcast_to(wm, (CHUNK, A)), torch.int32, dev)
+        plain, over = kern.truncate_full(tuple(getattr(chunk, k) for k in PLANES), clock)
+        if bool(over.any()) or max_abs_err([getattr(trunc, k) for k in PLANES], plain):
+            raise AssertionError("truncate_orswot through the merge kernel != the plain path")
+        k2.check("the truncate")
+        rep["k2_launches_checked"] = k2.checked
+    rep["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  merge(GC'd Q, P) == merge(Q, P) by digest; truncate at the watermark "
+        f"{trunc_ms:.3f} ms == the plain path; {len(k2.checked)} merge-kernel launches "
+        f"bit-equal to merge_reference; peak device memory {rep['peak_memory_gb']:.2f} GB "
+        f"[{card}]")
+    print("sync_gc " + json.dumps(rep), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1936,6 +2283,15 @@ def main() -> int:
     t0 = time.perf_counter()
     map_k2_launches = map_phase(dev, card)
     log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    log("== phase 10: sync and GC (digests, descent, delta exchange, GC pass)")
+    t0 = time.perf_counter()
+    sync_k2 = sync_gc_phase(dev, card)
+    log(f"  phase 10 took {time.perf_counter() - t0:.1f} s; the merge kernel launched "
+        f"{sync_k2} times on its main path")
+    if sync_k2 == 0:
+        raise AssertionError("phase 10 never launched the merge kernel")
 
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -1943,6 +2299,7 @@ def main() -> int:
          "wire_launches": wire_k2 if name == "orswot_merge" else 0,
          "op_launches": op_k2 if name == "orswot_merge" else 0,
          "map_launches": map_k2_launches if name == "orswot_merge" else 0,
+         "sync_launches": sync_k2 if name == "orswot_merge" else 0,
          "max_abs_err": worst[name], "ms": timed[name]["ms"],
          "plain_ms": timed[name]["plain_ms"], "bound_ms": timed[name]["bound_ms"],
          "bound_by": timed[name]["bound_by"], "library_ms": None}

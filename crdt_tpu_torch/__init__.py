@@ -10,8 +10,12 @@ nested ``MapKernel``), its nested sets merged by the merge kernel; hand-written 
 the wire leg — ``OrswotBatch.from_wire``/``to_wire`` through a host
 C++ codec (``native/``) and :class:`PipelinedWireLoop`, which folds wire
 blobs on the card — and the op path (``oplog/``, :class:`PipelinedOpLoop`):
-op frames folded into the planes on the card.  The scalar engine (``scalar/``) and the serde codec
-(``utils/serde.py``) are the port's own copies.  Entry points take
+op frames folded into the planes on the card; delta anti-entropy
+(``sync/``: digests, digest trees, delta frames, :class:`OrswotDeltaApplier`
+merging the diverged rows through the merge kernel) and causal GC
+(``gc/``: the fleet watermark, settle, repack, truncate, :class:`GcEngine`).
+The scalar engine (``scalar/``) and the serde codec (``utils/serde.py``)
+are the port's own copies.  Entry points take
 ``device=`` and default to ``"cuda"``; pass ``device="cpu"`` to run the
 plain PyTorch versions.
 
@@ -50,7 +54,9 @@ from .error import (
     SyncProtocolError,
     WireFormatError,
 )
+from .gc import FleetWatermark, GcEngine, GcPolicy, GcReport, WatermarkReport
 from .parallel import JoinError, JoinExecutor, JoinStats, join_all
+from .sync import DigestTree, OrswotDeltaApplier, build_tree, digest_of, version_vector
 from .utils.interning import IdentityRegistry, Registry, Universe
 
 __all__ = [
@@ -59,7 +65,12 @@ __all__ = [
     "CrdtConfig",
     "CrdtError",
     "DeviceUnavailableError",
+    "DigestTree",
+    "FleetWatermark",
     "GCounterBatch",
+    "GcEngine",
+    "GcPolicy",
+    "GcReport",
     "GSetBatch",
     "IdentityRegistry",
     "JoinError",
@@ -74,6 +85,7 @@ __all__ = [
     "MVRegKernel",
     "OpLogOverflowError",
     "OrswotBatch",
+    "OrswotDeltaApplier",
     "OrswotKernel",
     "PNCounterBatch",
     "PipelinedOpLoop",
@@ -82,7 +94,11 @@ __all__ = [
     "SyncProtocolError",
     "Universe",
     "VClockBatch",
+    "WatermarkReport",
     "WireFormatError",
+    "build_tree",
+    "digest_of",
     "join_all",
     "resolve_device",
+    "version_vector",
 ]

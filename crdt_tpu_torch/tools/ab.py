@@ -4,6 +4,7 @@ tree: ``chip_smoke.py`` of each, in turns, and K3's peak device memory
 per call in each.
 
     python -m crdt_tpu_torch.tools.ab --other build/parent [--order otto] [--out DIR]
+                                      [--phase wire]
 
 ``--other`` is a checkout of the other tree (``git archive <commit> |
 tar -x -C build/parent``; ``build/`` is ignored by git).  ``--order``
@@ -15,6 +16,10 @@ chunk and merges/s, and K3's peak device memory per call above its
 inputs (one fold of the 62,500-object main-path chunk, measured by
 ``torch.cuda.max_memory_allocated`` in a separate process); then the
 card's name and power limit, and one JSON line last.
+
+``--phase wire`` runs only ``chip_smoke.py``'s phase 6 (the wire leg,
+after the kernels' build) in each tree, and reports each loop mode's
+merges/s end to end per run instead.
 """
 
 from __future__ import annotations
@@ -48,6 +53,25 @@ print(json.dumps({"k3_peak_bytes": torch.cuda.max_memory_allocated() - before}))
 """
 
 
+# chip_smoke.py's phase 6 alone, in the tree it runs in
+WIRE = r"""
+import sys, torch
+sys.path.insert(0, ".")
+import chip_smoke
+from crdt_tpu_torch import _build
+_build.build_all()
+chip_smoke.wire_leg(torch.device("cuda", 0), chip_smoke.card_line())
+"""
+
+
+def _run_wire(tree: Path, log: Path) -> dict:
+    proc = subprocess.run([sys.executable, "-c", WIRE], cwd=tree, capture_output=True,
+                          text=True, timeout=900)
+    log.write_text(proc.stdout + proc.stderr)
+    rates = re.findall(r"loop ([\w ,]+): per round .*?; ([\d.]+)M merges/s", proc.stdout)
+    return {"rc": proc.returncode, "merges_per_s_M": {k: float(v) for k, v in rates}}
+
+
 def _run(tree: Path, log: Path) -> dict:
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tree, capture_output=True,
                           text=True, timeout=1200)
@@ -72,14 +96,16 @@ def main(argv=None) -> int:
     ap.add_argument("--other", required=True, type=Path)
     ap.add_argument("--order", default="otto")
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "ab")
+    ap.add_argument("--phase", choices=("all", "wire"), default="all")
     args = ap.parse_args(argv)
+    run = _run_wire if args.phase == "wire" else _run
     out_dir = args.out
     out_dir.mkdir(parents=True, exist_ok=True)
     trees = {"o": args.other.resolve(), "t": ROOT}
     rows = []
     for i, key in enumerate(args.order):
         row = {"run": i, "tree": "other" if key == "o" else "this",
-               **_run(trees[key], out_dir / f"{i}_{key}.log")}
+               **run(trees[key], out_dir / f"{i}_{key}.log")}
         rows.append(row)
         print(json.dumps(row), flush=True)
     card = subprocess.run(

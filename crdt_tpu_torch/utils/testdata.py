@@ -250,3 +250,20 @@ def random_map(rng, val: str = "mvreg", m=None, n_keys=5, n_actors=6, max_ops=10
                 dot=dot, key=ikey, op=Put(clock=clock, val=x))
         m.apply(Up(dot=dot, key=key, op=op))
     return m
+
+
+def plant_dominated_deferred(batch, rows, dup: int = 0) -> int:
+    """Write into ``batch``'s planes, in place, a deferred remove of the
+    member in slot 0 of each of ``rows`` that holds one, with the row's
+    own clock as its context, in the last deferred slot, and an exact
+    duplicate of the first ``dup`` of them in the slot before: deferred
+    rows the object's clock dominates, which settling replays and
+    clears.  Those slots must be empty.  Returns the rows planted."""
+    idx = torch.as_tensor(np.asarray(rows, dtype=np.int64), device=batch.ids.device)
+    idx = idx[batch.ids[idx, 0] != EMPTY]
+    for slot, at in ((-1, idx), (-2, idx[:dup])):
+        if bool((batch.d_ids[at, slot] != EMPTY).any()):
+            raise ValueError(f"deferred slot {slot} is taken in a planted row")
+        batch.d_ids[at, slot] = batch.ids[at, 0]
+        batch.d_clocks[at, slot] = batch.clock[at]
+    return int(idx.numel())

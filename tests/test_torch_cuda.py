@@ -524,3 +524,148 @@ def test_map_merge_on_the_card_equals_the_cpu(dev, kind, bits):
     launched = _build.launch_counts()["orswot_merge"]
     assert launched > 0 if (kind, bits) == ("orswot", 32) else launched == 0
     assert got.to_wire(uni) == want.to_wire(uni)
+
+
+def _sync_pair(dev, bits=32, n=96, seed=61, a=16, m=8, d=2):
+    """Two replicas of one plunged fleet on the CPU, each with adds of its
+    own on a seeded eighth of the rows, and their universe."""
+    from crdt_tpu_torch import CrdtConfig, OrswotBatch, Universe
+
+    uni = Universe.identity(CrdtConfig(num_actors=a, member_capacity=m, deferred_capacity=d,
+                                       counter_bits=bits))
+    rng = np.random.RandomState(seed)
+    dt = np.uint32 if bits == 32 else np.uint64
+    (base,) = anti_entropy_fleets(rng, n, a, m, d, 1, base=4, novel=0, deferred_frac=0.25,
+                                  dtype=dt)
+    p0 = OrswotBatch.from_numpy(*base, device="cpu")
+    p0 = p0.merge(p0)
+    out = []
+    for actor, member in ((1, 1 << 20), (0, 1 << 21)):
+        rows = np.sort(rng.choice(n, n // 8, replace=False))
+        sub = OrswotBatch(*(getattr(p0, f)[rows] for f in ("clock", "ids", "dots", "d_ids",
+                                                           "d_clocks")))
+        nxt = (sub.clock.amax(dim=-1) ^ torch.iinfo(sub.clock.dtype).min) + 1
+        sub = sub.apply_add(np.full(len(rows), actor), nxt.numpy().astype(dt),
+                            np.full(len(rows), member))
+        fleet = OrswotBatch(*(getattr(p0, f).clone() for f in ("clock", "ids", "dots", "d_ids",
+                                                               "d_clocks")))
+        for f in ("clock", "ids", "dots", "d_ids", "d_clocks"):
+            getattr(fleet, f)[rows] = getattr(sub, f)
+        out.append((fleet, rows))
+    return uni, out
+
+
+def _on(batch, d):
+    import dataclasses
+
+    return dataclasses.replace(batch, **{f.name: getattr(batch, f.name).to(d)
+                                         for f in dataclasses.fields(batch)})
+
+
+@pytest.mark.parametrize("bits", [32, 64])
+def test_digest_and_tree_on_the_card_equal_the_cpu(dev, bits):
+    """The ORSWOT, counter and LWW digests, the version vector and the
+    digest tree computed on the card equal the CPU's, bit for bit."""
+    from crdt_tpu_torch import LWWRegBatch, PNCounterBatch
+    from crdt_tpu_torch.sync import digest, tree
+
+    uni, ((p, _), (q, _)) = _sync_pair(dev, bits)
+    for b in (p, q, p.with_capacity(16, 4)):
+        want = digest.digest_of(b, uni)
+        np.testing.assert_array_equal(digest.digest_of(_on(b, dev), uni), want)
+        np.testing.assert_array_equal(digest.version_vector(_on(b, dev)),
+                                      digest.version_vector(b))
+        for lv_got, lv_want in zip(tree.build_tree(want, device=dev).levels,
+                                   tree.build_tree(want, device="cpu").levels):
+            np.testing.assert_array_equal(lv_got, lv_want)
+    rng = np.random.RandomState(bits)
+    dt = np.uint32 if bits == 32 else np.uint64
+    pn = PNCounterBatch.from_numpy(rng.randint(0, 2**31, size=(64, 2, 16)).astype(dt),
+                                   device="cpu")
+    lww = LWWRegBatch.from_numpy(rng.randint(0, 2**62, size=64).astype(np.uint64),
+                                 rng.randint(1, 2**62, size=64).astype(np.uint64), device="cpu")
+    for b in (pn, lww):
+        np.testing.assert_array_equal(digest.digest_of(_on(b, dev), uni),
+                                      digest.digest_of(b, uni))
+
+
+@pytest.mark.parametrize("widths", ["config", "regrown"])
+def test_delta_applier_on_the_card_equals_the_cpu(dev, widths):
+    """The delta exchange both ways on the card: the applier launches the
+    merge kernel (counted) on the gathered rows, also at widths unequal
+    to the peer rows', and gives the CPU's planes; the kernel takes
+    unequal member and deferred widths in either order, bit-equal to its
+    plain version."""
+    from crdt_tpu_torch.sync import delta, digest
+
+    uni, ((p, rp), (q, rq)) = _sync_pair(dev)
+    if widths == "regrown":
+        p, q = p.with_capacity(16, 8), q.with_capacity(32, 4)
+    ids = delta.diverged_indices(digest.digest_of(p, uni), digest.digest_of(q, uni))
+    np.testing.assert_array_equal(ids, np.union1d(rp, rq))
+    for local, peer in ((p, q), (q, p)):
+        blobs = delta.gather_blobs(_on(peer, dev), ids, uni)
+        assert blobs == delta.gather_blobs(peer, ids, uni)
+        want = delta.OrswotDeltaApplier(uni).apply(local, ids, blobs)
+        _build.reset_launch_counts()
+        got = delta.OrswotDeltaApplier(uni).apply(_on(local, dev), ids, blobs)
+        assert _build.launch_counts()["orswot_merge"] == 1
+        for f in ("clock", "ids", "dots", "d_ids", "d_clocks"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    idx = torch.as_tensor(ids, device=dev)
+    sa, sb = ([getattr(delta.take_rows(_on(x, dev), idx), f) for f in (
+        "clock", "ids", "dots", "d_ids", "d_clocks")] for x in (p, q))
+    for x, y in ((sa, sb), (sb, sa)):
+        m_cap, d_cap = x[1].shape[-1], x[3].shape[-1]
+        _equal(tile.merge(*x, *y, m_cap, d_cap, prebiased=True),
+               tile.merge_reference(*x, *y, m_cap, d_cap))
+
+
+def test_gc_pass_and_truncate_on_the_card_equal_the_cpu(dev, monkeypatch):
+    """One ``GcEngine.collect`` (settle in several row chunks over planted
+    dominated deferred rows, repack, op-log compaction below the
+    watermark) and ``truncate_orswot`` (the merge kernel, counted) on the
+    card give the CPU's planes and report."""
+    from crdt_tpu_torch import GcEngine, GcPolicy
+    from crdt_tpu_torch.gc import compact
+    from crdt_tpu_torch.obs.convergence import ConvergenceTracker
+    from crdt_tpu_torch.oplog import OpBatch, OpLog
+    from crdt_tpu_torch.sync import digest
+    from crdt_tpu_torch.utils.testdata import plant_dominated_deferred
+
+    uni, ((p, _), (q, _)) = _sync_pair(dev)
+    q = q.with_capacity(32, 8)
+    planted = plant_dominated_deferred(q, np.arange(0, q.clock.shape[0], 2), dup=4)
+    # seven rows per settle chunk: (M + D) * D * A cells a row
+    monkeypatch.setattr(compact, "_SETTLE_CELLS", 7 * (32 + 8) * 8 * 16)
+    rng = np.random.RandomState(7)
+    b = 512
+    ops = OpBatch(kind=np.zeros(b, np.uint8), obj=rng.randint(0, 96, size=b),
+                  actor=rng.randint(0, 16, size=b), counter=rng.randint(1, 120, size=b),
+                  member=rng.randint(0, 99, size=b))
+    results = []
+    for d in ("cpu", dev):
+        trk = ConvergenceTracker()
+        trk.observe_version_vector("p", digest.version_vector(p))
+        log = OpLog(uni, capacity=b)
+        log.append(ops)
+        eng = GcEngine(GcPolicy(interval_rounds=1), tracker=trk)
+        results.append(eng.collect(_on(q, d), universe=uni, oplog=log, peers=["p"]) +
+                       (log.pending(),))
+    (want, wrep, wlog), (got, grep, glog) = results
+    for f in ("clock", "ids", "dots", "d_ids", "d_clocks"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    assert grep.tombstones_cleared >= planted + 4 and grep.members_freed >= planted
+    assert (grep.tombstones_cleared, grep.members_freed, grep.member_capacity,
+            grep.deferred_capacity,
+            grep.reclaimed_bytes, grep.oplog_ops_dropped) == (
+        wrep.tombstones_cleared, wrep.members_freed, wrep.member_capacity,
+        wrep.deferred_capacity, wrep.reclaimed_bytes, wrep.oplog_ops_dropped)
+    np.testing.assert_array_equal(glog.counter, wlog.counter)
+    wm = grep.watermark.clock
+    _build.reset_launch_counts()
+    got_t = compact.truncate_orswot(_on(p, dev), wm)
+    assert _build.launch_counts()["orswot_merge"] == 1
+    want_t = compact.truncate_orswot(p, wm)
+    for f in ("clock", "ids", "dots", "d_ids", "d_clocks"):
+        assert torch.equal(getattr(got_t, f).cpu(), getattr(want_t, f)), f

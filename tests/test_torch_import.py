@@ -51,16 +51,18 @@ def test_scan_covers_every_module():
     names = {p.name for p in PORT_FILES}
     assert {"orswot_ops.py", "orswot_tile.py", "orswot_fold_aligned.py", "executor.py",
             "orswot_batch.py", "_build.py", "chip_smoke.py", "map_ops.py", "map_batch.py",
-            "val_kernels.py"} <= names
+            "val_kernels.py", "digest.py", "tree.py", "delta.py", "occupancy.py", "policy.py",
+            "watermark.py", "compact.py", "repack.py"} <= names
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "from_numpy", "zeros", "build_fleet_planes",
-                                   "map_zeros", "map_from_scalar"])
+                                   "map_zeros", "map_from_scalar", "build_tree"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(entry, monkeypatch):
     from crdt_tpu_torch import (
         CrdtConfig, DeviceUnavailableError, MapBatch, MVRegKernel, OrswotBatch, Universe,
     )
     from crdt_tpu_torch.device import resolve_device
+    from crdt_tpu_torch.sync import build_tree
     from crdt_tpu_torch.utils.testdata import build_fleet_planes, fleet_columns
 
     # the suite runs on card-less machines; pin that state so the test
@@ -80,6 +82,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(entry, monkeypatc
         "map_zeros": lambda: MapBatch.zeros(3, uni, MVRegKernel.from_config(uni.config)),
         "map_from_scalar": lambda: MapBatch.from_scalar([], uni,
                                                         MVRegKernel.from_config(uni.config)),
+        "build_tree": lambda: build_tree(np.arange(4, dtype=np.uint64)),
     }
     with pytest.raises(DeviceUnavailableError, match="cuda"):
         calls[entry]()
