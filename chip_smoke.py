@@ -114,8 +114,27 @@ Phases, in order; any failure ends the run with a nonzero exit:
    held against ``merge_reference``.  One ``sync_gc`` JSON line carries
    the numbers.
 
+11. read front-end — phase 10's replica P (1.25M objects, A=64, M=16,
+   D=2) read by ``bench.py::bench_reads``'s traffic: ``WorkloadGen(seed
+   29, zipf_s=1.1, burst_len=4, read_frac=0.5).draw_mixed``, 40 batches of
+   8,192 reads through ``serve.gather`` (a quarter ``value()`` reads, the
+   rest ``contains()`` probes on members below 2M; each frame held against
+   the same reads on a CPU copy of their rows), every batch into
+   ``HeatTracker.record_reads`` (one in 8 under the ``frontier`` mode, its
+   statuses stamped from the frontier), the write half folded in 4 chunks
+   by ``derive_add_ctx`` + ``OpApplier.apply_ops``; two peers' evidence
+   (one equal to the fleet, one lagging on subtree 0) before each frontier
+   batch, the frontier held against a numpy min over the peers; the heat
+   totals against the stream's bincount, the sketch's top 8 and error
+   bounds against the true counts; 4,096 reads against the scalar
+   ``ReadCtx`` loop; ``StabilityTracker.audit`` of 4,096 rows (the merge
+   kernel, held against ``merge_reference``); ``CapacityTracker`` samples
+   and ``GcEngine.due``; the kernel observatory timing every launch; then
+   one batch of each other kind on a small fleet against the CPU.  One
+   ``reads`` JSON line carries the numbers.
+
 Launch counts are reset just before phase 4 and read just after, and
-again around phases 5, 6, 6b, 7, 8 and 9, and around each step of
+again around phases 5, 6, 6b, 7, 8, 9 and 11, and around each step of
 phase 10's main path (the replicas' plunger, the exchange, the GC pass
 and the truncate; the checks between them are not counted).  The last lines are the kernel table
 (JSON), the card's name and power limit, and ``{"ok": true, "device":
@@ -2004,7 +2023,8 @@ def sync_gc_phase(dev, card: str):
     """Phase 10: delta anti-entropy between two 1.25M-object replicas and
     a causal-GC pass (A=64, M=16, D=2, u32).  Returns the merge kernel's
     launches on the phase's main path (the plunger, the two applies, the
-    reference truncate)."""
+    reference truncate), replica P and the diverged rows, which phase 11
+    reads."""
     import torch
 
     from crdt_tpu_torch import (
@@ -2160,6 +2180,379 @@ def sync_gc_phase(dev, card: str):
         f"bit-equal to merge_reference; peak device memory {rep['peak_memory_gb']:.2f} GB "
         f"[{card}]")
     print("sync_gc " + json.dumps(rep), flush=True)
+    return launches, p, ids
+
+
+# -- phase 11 ------------------------------------------------------------------
+
+# the read front-end: bench.py::bench_reads's traffic (WorkloadGen seed 29,
+# Zipf 1.1, bursts of 4, half reads) at the north-star fleet; 8,192-row
+# read batches, a quarter value() reads and the rest contains() probes on
+# members below 2M, one batch in 8 under the frontier mode; the write half
+# folded in 4 chunks through derive_add_ctx + OpApplier; then one batch of
+# each other kind at phase 8's (u64, 65,536 objects) and phase 9's (u32,
+# Map<K, MVReg>, 8,192 objects) widths
+READ_B, READ_NB, READ_FRONTIER_EVERY, READ_WRITE_CHUNKS = 8192, 40, 8, 4
+READ_PARITY, READ_AUDIT, READ_KIND_N, READ_TIMED = 4096, 4096, 65_536, 10
+
+
+def read_traffic(rng):
+    """``(read objects, read members, write objects)`` of the mixed stream."""
+    from crdt_tpu_torch.serve import NO_MEMBER
+    from crdt_tpu_torch.utils.workload import WorkloadGen
+
+    gen = WorkloadGen(N_TOTAL, seed=29, zipf_s=1.1, burst_len=4, read_frac=0.5)
+    keys, is_read = gen.draw_mixed(2 * READ_B * READ_NB + 20_000)
+    robj = keys[is_read][:READ_B * READ_NB]
+    if robj.size < READ_B * READ_NB:
+        raise AssertionError(f"the stream drew {robj.size} reads")
+    member = rng.randint(0, 2 * M, robj.size).astype(np.int32)
+    member[rng.random_sample(robj.size) < 0.25] = NO_MEMBER
+    return robj, member, keys[~is_read]
+
+
+def same_frame(got, want, what: str):
+    """Raise unless two frames agree on every value, clock and extras column."""
+    for f in ("val", "add_clock", "rm_clock"):
+        g, w = getattr(got, f), getattr(want, f)
+        if g.dtype != w.dtype or not np.array_equal(g, w):
+            raise AssertionError(f"{what}: {f} differs")
+    for k, w in want.extras.items():
+        if got.extras[k].dtype != w.dtype or not np.array_equal(got.extras[k], w):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def cpu_frame(fleet, obj, member):
+    """The same reads through the plain path on a CPU copy of their rows."""
+    from crdt_tpu_torch.serve import gather
+    from crdt_tpu_torch.sync import delta
+
+    uniq, inv = np.unique(obj, return_inverse=True)
+    rows = delta.take_rows(fleet, rows_of(uniq, fleet.clock.device))
+    return gather(dataclasses.replace(rows, **{k: getattr(rows, k).cpu() for k in PLANES}),
+                  inv, member=member)
+
+
+def np_svv(clock, span):
+    """Per-subtree max of a host ``[N, W]`` clock plane (numpy)."""
+    return np.stack([clock[s:s + span].max(axis=0) for s in range(0, clock.shape[0], span)])
+
+
+def refresh_frontier(trk, conv, fleet, prev, span):
+    """Evidence from peer "eq" (the fleet as it is) and peer "lag" (the
+    fleet with subtree 0's clocks as of ``prev``, the last refresh), then
+    the frontier on the card; held against a numpy min over the peers.
+    Returns ``(report, fold ms, this refresh's host svv)``."""
+    import torch
+
+    from crdt_tpu_torch import VClockBatch
+    from crdt_tpu_torch.dtypes import counters_to_numpy
+    from crdt_tpu_torch.sync import digest
+
+    lag = VClockBatch(clocks=torch.cat([prev[1][:span], fleet.clock[span:]]))
+    for peer, b in (("eq", fleet), ("lag", lag)):
+        trk.observe_converged(peer, b)
+        conv.observe_version_vector(peer, digest.version_vector(b))
+    report, ms, _ = timed_ms(lambda: trk.frontier(fleet, peers=["eq", "lag"]))
+    now = np_svv(counters_to_numpy(fleet.clock), span).astype(np.uint64)
+    lag_svv = np.concatenate([prev[0][:1], now[1:]])
+    fleet_min = np.minimum(now.max(axis=0), lag_svv.max(axis=0))
+    want = np.maximum(np.minimum(now, lag_svv), fleet_min)
+    if not (np.array_equal(report.clock, fleet_min)
+            and np.array_equal(report.subtree_clocks, want)):
+        raise AssertionError("the frontier != the numpy min over the peers")
+    return report, ms, now
+
+
+def kind_fleets(dev, rng):
+    """A fleet of each other read kind, from seeded numpy planes, on the
+    card and on the CPU: GCounter (64 actors), PNCounter ([2, 32]), LWW
+    and MVReg (K=8 x 64) at phase 8's widths, u64, 65,536 objects;
+    Map<K, MVReg> at phase 9's (A=64, K=16, D=8, mv 8), u32, 8,192."""
+    import torch
+
+    from crdt_tpu_torch import (CrdtConfig, GCounterBatch, LWWRegBatch, MapBatch, MapKernel,
+                                MVRegBatch, MVRegKernel, PNCounterBatch)
+    from crdt_tpu_torch.dtypes import bias_np
+    from crdt_tpu_torch.serve import K_GCOUNTER, K_LWW, K_MAP, K_MVREG, K_PNCOUNTER
+
+    n = READ_KIND_N
+
+    def c64(*shape):
+        x = rng.randint(0, 1 << 40, size=shape).astype(np.uint64) << np.uint64(20)
+        x[rng.random_sample(shape) < 0.5] = 0
+        return x
+
+    g, pn, lv, lm = c64(n, FLAT_A), c64(n, 2, FLAT_PN_A), c64(n), c64(n)
+    mc = c64(n, FLAT_K, FLAT_A) * (rng.random_sample((n, FLAT_K, 1)) < 0.5)
+    mv = c64(n, FLAT_K) * mc.any(axis=-1)
+    mn = READ_B
+    cfg = CrdtConfig(num_actors=MAP_A, key_capacity=MAP_K, deferred_capacity=MAP_D,
+                     mv_capacity=MAP_KV, counter_bits=32)
+    mk = MapKernel.from_config(cfg, MVRegKernel.from_config(cfg))
+    keys = np.where(rng.random_sample((mn, MAP_K)) < 0.6, np.arange(MAP_K) * 5, -1)
+    mclock = (c64(mn, MAP_A) >> np.uint64(40)).astype(np.uint32)
+    eclocks = (c64(mn, MAP_K, MAP_A) >> np.uint64(40)).astype(np.uint32) * (keys >= 0)[..., None]
+
+    def build(d):
+        m = MapBatch.from_state(mk.zeros((mn,), d), mk)
+        for plane, x in ((m.clock, bias_np(mclock)), (m.keys, keys.astype(np.int32)),
+                         (m.entry_clocks, bias_np(eclocks))):
+            plane.copy_(torch.from_numpy(np.ascontiguousarray(x)).to(d))
+        return {K_GCOUNTER: GCounterBatch.from_numpy(g, device=d),
+                K_PNCOUNTER: PNCounterBatch.from_numpy(pn, device=d),
+                K_LWW: LWWRegBatch.from_numpy(lv, lm, device=d),
+                K_MVREG: MVRegBatch.from_numpy(mc, mv, device=d), K_MAP: m}
+
+    return build(dev), build("cpu"), keys
+
+
+def read_kinds(dev, rng, card: str) -> dict:
+    """One 8,192-row batch of each other kind on the card, against the CPU."""
+    from crdt_tpu_torch.serve import KIND_NAMES, K_MAP, NO_MEMBER, gather
+
+    t0 = time.perf_counter()
+    on_card, on_cpu, keys = kind_fleets(dev, rng)
+    out = {"build_s": time.perf_counter() - t0}
+    for kind, batch in on_card.items():
+        n = (READ_B if kind == K_MAP else READ_KIND_N)
+        obj = rng.randint(0, n, READ_B)
+        member = None
+        if kind == K_MAP:
+            member = keys[obj, rng.randint(0, MAP_K, READ_B)].astype(np.int32)
+            member[rng.random_sample(READ_B) < 0.25] = NO_MEMBER
+        gather(batch, obj, member=member)  # the first call loads the ops' device code
+        frame, _, wall = timed_ms(lambda: gather(batch, obj, member=member))
+        same_frame(frame, gather(on_cpu[kind], obj, member=member), KIND_NAMES[kind])
+        out[KIND_NAMES[kind]] = {"objects": n, "gather_wall_ms": wall}
+    log(f"  other kinds, one {READ_B}-row batch each on the card == the CPU path: "
+        + ", ".join(f"{k} {v['gather_wall_ms']:.2f} ms" for k, v in out.items() if k != "build_s")
+        + f" (fleets built in {out['build_s']:.1f} s) [{card}]")
+    return out
+
+
+def read_phase(dev, card: str, fleet, diverged):
+    """Phase 11: the read front-end on the north-star fleet (phase 10's
+    replica P).  Returns the merge kernel's launches on the phase's path
+    (the auditor's self-merge)."""
+    import torch
+
+    from crdt_tpu_torch import (CapacityTracker, CrdtConfig, GcEngine, GcPolicy, HeatTracker,
+                                StabilityTracker, Universe, _build, kernel_observatory)
+    from crdt_tpu_torch.obs import convergence, heat as heat_mod, stability
+    from crdt_tpu_torch.dtypes import counters_to_numpy
+    from crdt_tpu_torch.oplog import OpApplier, derive_add_ctx
+    from crdt_tpu_torch.serve import (K_ORSWOT, NO_MEMBER, ST_NOT_STABLE, admit, gather, query,
+                                      stability_statuses)
+    from crdt_tpu_torch.sync import delta
+    from crdt_tpu_torch.utils.serde import from_binary
+
+    uni = Universe.identity(CrdtConfig.gpu_default(num_actors=A, member_capacity=M,
+                                                   deferred_capacity=D))
+    rng = np.random.RandomState(SEED + 11)
+    t_phase = time.perf_counter()
+    rep = {"card": card, "objects": N_TOTAL, "shape": [A, M, D], "batch": READ_B,
+           "fleet": "phase 10's replica P"}
+    torch.cuda.reset_peak_memory_stats()
+    obs = kernel_observatory()
+    with K2Launches() as k2:
+        t0 = time.perf_counter()
+        robj, rmember, wobj = read_traffic(rng)
+        rep["draw_s"] = time.perf_counter() - t0
+        subtrees, span = stability.subtree_layout(N_TOTAL)
+        conv = convergence.ConvergenceTracker()
+        trk = StabilityTracker(tracker=conv, seed=SEED)
+        trk.observe_descent("q", diverged, N_TOTAL)
+        heat = HeatTracker(device=dev)
+        applier = OpApplier(uni)
+        chunks = np.array_split(wobj, READ_WRITE_CHUNKS)
+        prev = None  # (host svv, clock plane) at the last frontier refresh
+        _build.reset_launch_counts()
+        obs.reset()
+        obs.set_enabled(True)
+        walls, rec_ms, write_s, fold_ms, checks_s = [], [], [], [], 0.0
+        not_stable = [0] * subtrees
+        report = None
+        for i in range(READ_NB):
+            if i % (READ_NB // READ_WRITE_CHUNKS) == 0:
+                if prev is None:  # the evidence point before any write
+                    prev = (np_svv(counters_to_numpy(fleet.clock), span).astype(np.uint64),
+                            fleet.clock)
+                w = chunks[i // (READ_NB // READ_WRITE_CHUNKS)]
+                t0 = time.perf_counter()
+                ops, _ = derive_add_ctx(fleet.clock, w, rng.randint(0, A, w.size).astype(np.int32),
+                                        member=rng.randint(1 << 16, (1 << 16) + 4, w.size)
+                                        .astype(np.int32))
+                fleet, _ = applier.apply_ops(fleet, ops)
+                heat.record_writes(w, N_TOTAL)
+                torch.cuda.synchronize()
+                write_s.append(time.perf_counter() - t0)
+            sl = slice(i * READ_B, (i + 1) * READ_B)
+            obj, member = robj[sl], rmember[sl]
+            mode = "frontier" if i % READ_FRONTIER_EVERY == 0 else "eventual"
+            if mode == "frontier":
+                report, ms, now = refresh_frontier(trk, conv, fleet, prev, span)
+                prev = (now, fleet.clock)
+                fold_ms.append(ms)
+            if not admit(mode, None, conv.version_vectors()["eq"][0],
+                         None if report is None else report.clock).admitted:
+                raise AssertionError(f"a {mode} read batch was not admitted")
+            t0 = time.perf_counter()
+            frame = gather(fleet, obj, member=member)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            heat.record_reads(obj, N_TOTAL, mode)
+            torch.cuda.synchronize()
+            rec_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            same_frame(frame, cpu_frame(fleet, obj, member), f"read batch {i}")
+            if mode == "frontier":
+                frame.status = stability_statuses(frame, trk.subtree_frontier_clocks(), span)
+                floor = report.subtree_clocks[obj // span]
+                want = np.where((frame.add_clock <= floor).all(axis=1), 0, ST_NOT_STABLE)
+                if not np.array_equal(frame.status, want):
+                    raise AssertionError(f"read batch {i}: the statuses != the numpy frontier")
+                for s in range(subtrees):
+                    not_stable[s] += int((frame.status[obj // span == s] != 0).sum())
+            checks_s += time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if not_stable[0] == 0 or any(not_stable[1:]):
+            raise AssertionError(f"ST_NOT_STABLE rows by subtree {not_stable}: want some in the "
+                                 "lagging subtree 0 and none elsewhere")
+
+        n_reads = READ_B * READ_NB
+        rep.update(reads=n_reads, writes=int(wobj.size), gather_wall_ms=walls,
+                   reads_per_s=n_reads / (sum(walls) / 1e3), heat_record_ms=rec_ms,
+                   write_fold_s=write_s, frontier_ms=fold_ms, checks_s=checks_s,
+                   not_stable_by_subtree=not_stable)
+        log(f"  {READ_NB} ORSWOT read batches of {READ_B} ({n_reads} reads, {wobj.size} writes "
+            f"folded in {READ_WRITE_CHUNKS} chunks of {[round(t, 3) for t in write_s]} s): "
+            f"{rep['reads_per_s'] / 1e6:.3f}M reads/s end to end (gather wall per batch "
+            f"{min(walls):.2f}-{max(walls):.2f} ms, median {np.median(walls):.2f}); heat record "
+            f"median {np.median(rec_ms):.2f} ms per batch; each frame == the CPU path; frontier "
+            f"batches' statuses == the numpy frontier, ST_NOT_STABLE by subtree {not_stable} "
+            f"[{card}]")
+
+        # the gather's device time and bytes bound, and its copy back
+        dev_ms, d2h_ms, moved, bounds = [], [], [], []
+        for i in range(READ_TIMED):
+            sl = slice(i * READ_B, (i + 1) * READ_B)
+            obj_t, mem_t = query._upload(robj[sl], rmember[sl], dev)
+            b = obj_t.shape[0]
+            out, ms, _ = timed_ms(lambda: query.KERNELS[K_ORSWOT](fleet, obj_t, mem_t))
+            t0 = time.perf_counter()
+            host = query._download(out)
+            d2h_ms.append((time.perf_counter() - t0) * 1e3)
+            hits = int(((rmember[sl] >= 0) & (host[0] == 1)).sum())
+            in_b = b * (16 + 4 * (A + M)) + hits * 4 * A
+            out_b = sum(x.nbytes for x in (*host[:3], *host[3].values()))
+            dev_ms.append(ms)
+            moved.append(out_b)
+            bounds.append(bound_ms(in_b, out_b, 0)[0])
+        # the heat tracker's two device passes on one batch, and the frontier fold
+        ids_t = torch.from_numpy(np.stack(heat_mod._pad_pow2(robj[:READ_B]))).to(dev)
+        sketch_ms = cuda_ms(lambda: heat_mod.sketch_update(*heat._table(), ids_t[0], ids_t[1]), 5)
+        hfold_ms = cuda_ms(lambda: heat_mod.subtree_fold(ids_t[0], ids_t[1], subtrees, span), 5)
+        front_ms = cuda_ms(lambda: stability.subtree_fold(fleet.clock, subtrees, span), 10)
+        front_bound = bound_ms(nbytes([fleet.clock]), subtrees * A * 4, 0)[0]
+        rep.update(gather_device_ms=dev_ms, gather_bound_ms=bounds, d2h_ms=d2h_ms,
+                   d2h_bytes=moved, sketch_ms=sketch_ms, heat_fold_ms=hfold_ms,
+                   frontier_fold_ms=front_ms, frontier_fold_bound_ms=front_bound)
+        log(f"  ORSWOT gather: device {np.median(dev_ms):.4f} ms per batch (CUDA events, median "
+            f"of {READ_TIMED}) against a bytes bound of {np.median(bounds):.4f} ms; copy back "
+            f"{np.median(d2h_ms):.3f} ms for {moved[0]} B; heat sketch {sketch_ms:.4f} ms, heat "
+            f"fold {hfold_ms:.4f} ms; frontier fold {front_ms:.4f} ms against a bound of "
+            f"{front_bound:.4f} ms (refresh with evidence {np.median(fold_ms):.1f} ms) [{card}]")
+
+        # heat: the subtree totals and the sketch against the stream itself
+        snap = heat.snapshot()
+        for cls, ids in (("reads", robj), ("writes", wobj)):
+            got = [s[cls] for s in snap["subtree"]]
+            if got != np.bincount(ids // span, minlength=subtrees).tolist():
+                raise AssertionError(f"heat {cls} by subtree {got} != the stream's bincount")
+        true = np.bincount(np.concatenate([robj, wobj]), minlength=N_TOTAL)
+        top = np.argsort(-true, kind="stable")[:9]
+        hot = heat.hot(8)
+        if sorted(true[[h["obj"] for h in hot]].tolist()) != sorted(true[top[:8]].tolist()) or (
+                true[top[7]] > true[top[8]] and {h["obj"] for h in hot} != set(top[:8].tolist())):
+            raise AssertionError(f"the sketch's top 8 {hot} != the stream's {top[:8]}")
+        for h in snap["hot"]:
+            if not h["count"] - h["err"] <= true[h["obj"]] <= h["count"]:
+                raise AssertionError(f"sketch entry {h} against a true count {true[h['obj']]}")
+        rep.update(hot=hot, s_hat=snap["zipf"]["s_hat"], zipf_r2=snap["zipf"]["r2"],
+                   reads_by_mode=snap["reads_by_mode"])
+        log(f"  heat: subtree totals == the stream's bincount; the sketch's top 8 == the "
+            f"stream's, every decoded count within [count - err, count]; s_hat "
+            f"{snap['zipf']['s_hat']:.4f} (r2 {snap['zipf']['r2']:.4f}) beside zipf_s 1.1; reads "
+            f"by mode {snap['reads_by_mode']}")
+
+        # 4,096 reads against the scalar ReadCtx loop (bench_reads' parity gate)
+        t0 = time.perf_counter()
+        pobj = rng.randint(0, N_TOTAL, READ_PARITY)
+        uniq, inv = np.unique(pobj, return_inverse=True)
+        ids = delta.take_rows(fleet, rows_of(uniq, dev)).ids.cpu().numpy()
+        pmember = ids[inv, rng.randint(0, M, READ_PARITY)]
+        pick = rng.random_sample(READ_PARITY)
+        pmember[pick < 0.25] = NO_MEMBER
+        pmember[(pick >= 0.25) & (pick < 0.5)] = rng.randint(1 << 24, 1 << 25, int(
+            ((pick >= 0.25) & (pick < 0.5)).sum()))
+        frame = gather(fleet, pobj, member=pmember)
+        scal = [from_binary(b) for b in delta.gather_blobs(fleet, uniq, uni)]
+        for i in range(READ_PARITY):
+            s = scal[inv[i]]
+            rc = s.value() if pmember[i] < 0 else s.contains(int(pmember[i]))
+            got = frame.read_ctx(i, uni)
+            want_val = len(rc.val) if pmember[i] < 0 else int(bool(rc.val))
+            if (got.val, got.add_clock.dots, got.rm_clock.dots) != (
+                    want_val, rc.add_clock.dots, rc.rm_clock.dots):
+                raise AssertionError(f"read {i} of object {pobj[i]} != the scalar ReadCtx")
+        rep["parity_s"] = time.perf_counter() - t0
+        log(f"  {READ_PARITY} ORSWOT reads ({int((pmember >= 0).sum())} contains probes, "
+            f"{int(frame.val[pmember >= 0].sum())} hits) == the scalar ReadCtx loop "
+            f"({rep['parity_s']:.1f} s)")
+
+        # the auditor: a sampled self-merge through the wire codec and K2
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        audit = trk.audit(fleet, uni, sample=READ_AUDIT)
+        torch.cuda.synchronize()
+        rep["audit_s"] = time.perf_counter() - t0
+        if not audit.ok or audit.sampled != READ_AUDIT:
+            raise AssertionError(f"audit: {audit.violations}, {audit.sampled} sampled")
+        k2.check("the auditor's self-merge")
+        rep["k2_launches_checked"] = k2.checked
+
+        # capacity, device memory, and GcEngine.due driven by the tracker
+        cap = CapacityTracker(device=dev)
+        cap.sample(fleet)
+        cap.sample_gap_buffer(applier)
+        mem = cap.sample_device_memory()
+        eng = GcEngine(GcPolicy(interval_rounds=8, utilization_trigger="warn"),
+                       capacity_tracker=cap)
+        wm = cap.watermark()
+        fires = wm["state"] != "ok"
+        if [eng.due(1), eng.due(8)] != [fires, True]:
+            raise AssertionError(f"GcEngine.due against the watermark {wm['state']}")
+        obs.set_enabled(False)
+        table = obs.table()["orswot_merge"]
+        launches = _build.launch_counts()["orswot_merge"]
+        if launches == 0 or len(k2.checked) != launches or table["timed"] != launches:
+            raise AssertionError(f"the merge kernel launched {launches} times, "
+                                 f"{len(k2.checked)} checked, observed {table}")
+        rep.update(audit_checks=audit.checks, k2=table, capacity=wm, device_memory=mem,
+                   gc_due=[eng.due(1), eng.due(8)], stability=trk.snapshot()["aging"])
+        log(f"  audit of {READ_AUDIT} rows: 0 violations in {rep['audit_s']:.3f} s, the merge "
+            f"kernel {launches} launch(es) ({table['device_ms_total']:.3f} ms on the card, "
+            f"{len(k2.checked)} bit-equal to merge_reference); capacity {wm['state']} (live_max "
+            f"{wm['planes']['orswot']['live_max']}), device memory {mem}; GcEngine.due "
+            f"{rep['gc_due']} [{card}]")
+        rep["kinds"] = read_kinds(dev, rng, card)
+    rep["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rep["phase_s"] = time.perf_counter() - t_phase
+    log(f"  peak device memory {rep['peak_memory_gb']:.2f} GB; phase 11 {rep['phase_s']:.1f} s "
+        f"[{card}]")
+    print("reads " + json.dumps(rep, default=lambda x: x.tolist() if hasattr(x, "tolist")
+                                else str(x)), flush=True)
     return launches
 
 
@@ -2287,11 +2680,17 @@ def main() -> int:
 
     log("== phase 10: sync and GC (digests, descent, delta exchange, GC pass)")
     t0 = time.perf_counter()
-    sync_k2 = sync_gc_phase(dev, card)
+    sync_k2, fleet, diverged = sync_gc_phase(dev, card)
     log(f"  phase 10 took {time.perf_counter() - t0:.1f} s; the merge kernel launched "
         f"{sync_k2} times on its main path")
     if sync_k2 == 0:
         raise AssertionError("phase 10 never launched the merge kernel")
+    torch.cuda.empty_cache()
+
+    log("== phase 11: the read front-end (gathers, consistency, frontier, heat, audit, capacity)")
+    read_k2 = read_phase(dev, card, fleet, diverged)
+    if read_k2 == 0:
+        raise AssertionError("phase 11 never launched the merge kernel")
 
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -2300,6 +2699,7 @@ def main() -> int:
          "op_launches": op_k2 if name == "orswot_merge" else 0,
          "map_launches": map_k2_launches if name == "orswot_merge" else 0,
          "sync_launches": sync_k2 if name == "orswot_merge" else 0,
+         "read_launches": read_k2 if name == "orswot_merge" else 0,
          "max_abs_err": worst[name], "ms": timed[name]["ms"],
          "plain_ms": timed[name]["plain_ms"], "bound_ms": timed[name]["bound_ms"],
          "bound_by": timed[name]["bound_by"], "library_ms": None}

@@ -13,7 +13,11 @@ blobs on the card — and the op path (``oplog/``, :class:`PipelinedOpLoop`):
 op frames folded into the planes on the card; delta anti-entropy
 (``sync/``: digests, digest trees, delta frames, :class:`OrswotDeltaApplier`
 merging the diverged rows through the merge kernel) and causal GC
-(``gc/``: the fleet watermark, settle, repack, truncate, :class:`GcEngine`).
+(``gc/``: the fleet watermark, settle, repack, truncate, :class:`GcEngine`);
+the read front-end (``serve/``: :func:`gather` and :class:`QueryEngine`,
+``ReadCtx`` rows for every kind, consistency admission) and its
+observatories (``obs/``: :class:`StabilityTracker`, :class:`HeatTracker`,
+:class:`CapacityTracker`, :func:`kernel_observatory`).
 The scalar engine (``scalar/``) and the serde codec (``utils/serde.py``)
 are the port's own copies.  Entry points take
 ``device=`` and default to ``"cuda"``; pass ``device="cpu"`` to run the
@@ -36,6 +40,10 @@ Quick start::
     from crdt_tpu_torch.oplog import derive_add_ctx, encode_ops_frame
     ops, _ = derive_add_ctx(fleet.clock, obj, actor, member=member)
     fleet, stats = PipelinedOpLoop(uni).run(fleet, [encode_ops_frame(ops)])
+
+    # a read batch: ReadCtx rows of contains() probes and value() reads
+    frame = gather(joined, obj, member=member)       # member -1: value()
+    ctx = frame.read_ctx(0, uni)
 """
 
 from .batch import (
@@ -55,12 +63,15 @@ from .error import (
     WireFormatError,
 )
 from .gc import FleetWatermark, GcEngine, GcPolicy, GcReport, WatermarkReport
+from .obs import CapacityTracker, HeatTracker, StabilityTracker, kernel_observatory
 from .parallel import JoinError, JoinExecutor, JoinStats, join_all
+from .serve import QueryEngine, ReadRequest, ResultFrame, gather
 from .sync import DigestTree, OrswotDeltaApplier, build_tree, digest_of, version_vector
 from .utils.interning import IdentityRegistry, Registry, Universe
 
 __all__ = [
     "CapacityOverflowError",
+    "CapacityTracker",
     "ConflictingMarker",
     "CrdtConfig",
     "CrdtError",
@@ -71,6 +82,7 @@ __all__ = [
     "GcEngine",
     "GcPolicy",
     "GcReport",
+    "HeatTracker",
     "GSetBatch",
     "IdentityRegistry",
     "JoinError",
@@ -90,7 +102,11 @@ __all__ = [
     "PNCounterBatch",
     "PipelinedOpLoop",
     "PipelinedWireLoop",
+    "QueryEngine",
+    "ReadRequest",
     "Registry",
+    "ResultFrame",
+    "StabilityTracker",
     "SyncProtocolError",
     "Universe",
     "VClockBatch",
@@ -98,7 +114,9 @@ __all__ = [
     "WireFormatError",
     "build_tree",
     "digest_of",
+    "gather",
     "join_all",
+    "kernel_observatory",
     "resolve_device",
     "version_vector",
 ]

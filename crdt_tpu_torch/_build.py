@@ -220,15 +220,26 @@ def library(name: str, extra: tuple[str, ...] = ()) -> ctypes.CDLL:
         return _LIBS[key]
 
 
-def launch(name: str, fn: str, *args) -> None:
-    """Call launcher ``fn`` of kernel ``name`` and count the launch;
-    raise :class:`KernelError` if the launcher returns an error."""
+#: the kernel observatory timing launches while it is enabled
+#: (:mod:`crdt_tpu_torch.obs.kernels`), else None
+OBSERVER = None
+
+
+def launch(name: str, fn: str, *args, nbytes: int | None = None) -> None:
+    """Call launcher ``fn`` of kernel ``name`` on the current stream and
+    count the launch; raise :class:`KernelError` if the launcher returns
+    an error.  ``nbytes``, the bytes the kernel reads and writes, goes to
+    the observatory with the launch's CUDA events."""
     lib = library(name)
+    obs = OBSERVER
+    start = obs.begin() if obs is not None else None
     rc = getattr(lib, fn)(*args)
     if rc != 0:
         msg = lib.orswot_error_string(rc).decode(errors="replace")
         raise KernelError(f"{name} launch failed: CUDA error {rc} ({msg})")
     _LAUNCHES[name] += 1
+    if start is not None:
+        obs.end(name, start, nbytes)
 
 
 def launch_counts() -> dict[str, int]:

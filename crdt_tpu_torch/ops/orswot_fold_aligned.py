@@ -38,6 +38,7 @@ from .orswot_tile import (
     _enter,
     _leave,
     _nonempty,
+    _nbytes,
     _ptrs,
     _rank_select,
     _rank_select_slots,
@@ -216,5 +217,6 @@ def fold_merge(clock, ids, dots, dids, dclocks, m_cap: int, d_cap: int,
         *_ptrs(st), *_ptrs(out),
         r, n, a, m, d, m_cap, d_cap, u_cap, int(plunger),
         torch.cuda.current_stream(st[0].device).cuda_stream,
+        nbytes=_nbytes((*st, *out)),
     )
     return _leave(out[:5], prebiased) + (out[5].bool(),)

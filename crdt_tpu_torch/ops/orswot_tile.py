@@ -293,6 +293,11 @@ def _ptrs(ts):
     return [t.data_ptr() for t in ts]
 
 
+def _nbytes(ts) -> int:
+    """Bytes of the planes a launch reads and writes, each once."""
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def merge(
     clock_a, ids_a, dots_a, dids_a, dclocks_a,
     clock_b, ids_b, dots_b, dids_b, dclocks_b,
@@ -322,6 +327,7 @@ def merge(
         *_ptrs(sa), *_ptrs(sb), *_ptrs(out),
         n, a, ma, mb, da, db, m_cap, d_cap,
         torch.cuda.current_stream(sa[0].device).cuda_stream,
+        nbytes=_nbytes((*sa, *sb, *out)),
     )
     shapes = (batch + (a,), batch + (m_cap,), batch + (m_cap, a), batch + (d_cap,),
               batch + (d_cap, a), batch + (2,))
@@ -401,5 +407,6 @@ def fold_merge(clock, ids, dots, dids, dclocks, m_cap: int, d_cap: int,
         *_ptrs(st), *_ptrs(out), None if acc is None else acc.data_ptr(),
         r, n, a, m, d, m_cap, d_cap, int(plunger),
         torch.cuda.current_stream(st[0].device).cuda_stream,
+        nbytes=_nbytes((*st, *out)),
     )
     return _leave(out[:5], prebiased) + (out[5].bool(),)

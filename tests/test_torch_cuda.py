@@ -669,3 +669,130 @@ def test_gc_pass_and_truncate_on_the_card_equal_the_cpu(dev, monkeypatch):
     want_t = compact.truncate_orswot(p, wm)
     for f in ("clock", "ids", "dots", "d_ids", "d_clocks"):
         assert torch.equal(getattr(got_t, f).cpu(), getattr(want_t, f)), f
+
+
+def _read_fleets(dev, seed=70, n=3000, a=16, k=4):
+    """One small fleet of each read kind, seeded numpy planes, on ``dev``."""
+    from crdt_tpu_torch import (GCounterBatch, LWWRegBatch, MapBatch, MapKernel, MVRegBatch,
+                                MVRegKernel, OrswotBatch, PNCounterBatch, CrdtConfig)
+    from crdt_tpu_torch.serve import query
+
+    rng = np.random.RandomState(seed)
+    top = np.array([0, 1, 7, 2**31, 2**32 - 1], np.uint64)
+    planes = random_orswot_arrays(rng, n, a, 8, 2, max_counter=90, deferred_frac=0.3)
+    c32 = lambda *s: top[rng.randint(0, 5, s)].astype(np.uint32)  # noqa: E731
+    c64 = lambda *s: (top[rng.randint(0, 5, s)] << np.uint64(31)).astype(np.uint64)  # noqa: E731
+    cfg = CrdtConfig(num_actors=a, key_capacity=k, deferred_capacity=2, mv_capacity=2)
+    keys = np.where(rng.rand(n, k) < 0.7, np.arange(k)[None, :] * 3, -1).astype(np.int32)
+    mk = MapKernel.from_config(cfg, MVRegKernel.from_config(cfg))
+    mp = MapBatch.from_state(mk.zeros((n,), dev), mk)
+    mp.clock.copy_(torch.from_numpy(bias_np(c32(n, a))).to(dev))
+    mp.keys.copy_(torch.from_numpy(keys).to(dev))
+    mp.entry_clocks.copy_(torch.from_numpy(bias_np(c32(n, k, a))).to(dev))
+    return {
+        query.K_ORSWOT: OrswotBatch.from_numpy(*planes, device=dev),
+        query.K_GCOUNTER: GCounterBatch.from_numpy(c64(n, a), device=dev),
+        query.K_PNCOUNTER: PNCounterBatch.from_numpy(c32(n, 2, a), device=dev),
+        query.K_LWW: LWWRegBatch.from_numpy(c64(n), c64(n), device=dev),
+        query.K_MVREG: MVRegBatch.from_numpy(c32(n, k, a), c32(n, k), device=dev),
+        query.K_MAP: mp,
+    }, planes[1]
+
+
+def test_gathers_on_the_card_equal_the_cpu(dev):
+    from crdt_tpu_torch.serve import NO_MEMBER, QueryEngine, gather
+
+    on_card, ids = _read_fleets(dev)
+    on_cpu, _ = _read_fleets(torch.device("cpu"))
+    rng = np.random.RandomState(71)
+    obj = rng.randint(0, ids.shape[0], 8192)
+    member = ids[obj, rng.randint(0, ids.shape[1], obj.size)]
+    member[rng.rand(obj.size) < 0.3] = NO_MEMBER
+    for kind in on_card:
+        got, want = gather(on_card[kind], obj, member=member), gather(on_cpu[kind], obj,
+                                                                      member=member)
+        for f in ("val", "add_clock", "rm_clock"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f"{kind} {f}")
+        for name, col in want.extras.items():
+            assert got.extras[name].dtype == col.dtype
+            np.testing.assert_array_equal(got.extras[name], col, err_msg=f"{kind} {name}")
+    kinds = rng.randint(0, 6, obj.size)
+    got = QueryEngine(on_card).gather(obj, kinds, member)
+    want = QueryEngine(on_cpu).gather(obj, kinds, member)
+    np.testing.assert_array_equal(got.rm_clock, want.rm_clock)
+
+
+def test_sketch_and_folds_on_the_card_equal_the_cpu(dev):
+    """Tie-heavy batches through the Space-Saving update (the stable
+    sort on CUDA), the heat subtree fold and the frontier fold."""
+    from crdt_tpu_torch.obs import heat, stability
+
+    rng = np.random.RandomState(72)
+    tables = []
+    for d in (dev, torch.device("cpu")):
+        z = torch.zeros(32, dtype=torch.int64, device=d)
+        tables.append((torch.full_like(z, -1), z, z.clone()))
+    for step in range(80):
+        ids = np.minimum(rng.zipf(1.1, int(rng.choice([7, 64, 4096]))) - 1, 200).astype(np.int64)
+        pad, w = heat._pad_pow2(np.repeat(ids, 2)[: ids.size])
+        tables = [heat.sketch_update(*t, torch.from_numpy(pad).to(t[0].device),
+                                     torch.from_numpy(w).to(t[0].device)) for t in tables]
+        for g, c in zip(*tables):
+            assert torch.equal(g.cpu(), c), step
+        got = heat.subtree_fold(torch.from_numpy(pad).to(dev), torch.from_numpy(w).to(dev), 13, 16)
+        assert torch.equal(got.cpu(), heat.subtree_fold(torch.from_numpy(pad),
+                                                        torch.from_numpy(w), 13, 16))
+    on_card, _ = _read_fleets(dev, n=70_001)
+    on_cpu, _ = _read_fleets(torch.device("cpu"), n=70_001)
+    for kind in (0, 1, 2):
+        np.testing.assert_array_equal(stability.subtree_version_vectors(on_card[kind]),
+                                      stability.subtree_version_vectors(on_cpu[kind]))
+    trk = heat.HeatTracker(capacity=16, device=dev)
+    cpu = heat.HeatTracker(capacity=16, device="cpu", clock=trk._clock)
+    for t in (trk, cpu):
+        t.record_reads(np.arange(5000) % 37, 70_001)
+        t.record_writes(np.arange(900) % 5, 70_001)
+    assert trk.snapshot()["hot"] == cpu.snapshot()["hot"]
+
+
+def test_audit_launches_the_merge_kernel_and_the_observatory_counts_it(dev, monkeypatch):
+    """The auditor's self-merge runs through the merge kernel, bit-equal to
+    ``merge_reference``; the observatory times every launch."""
+    from crdt_tpu_torch import CrdtConfig, OrswotBatch, Universe
+    from crdt_tpu_torch.obs import kernel_observatory, stability
+
+    uni = Universe.identity(CrdtConfig.gpu_default(num_actors=64, member_capacity=16,
+                                                   deferred_capacity=2))
+    rng = np.random.RandomState(73)
+    (planes,) = anti_entropy_fleets(rng, 20_000, 64, 16, 2, 1, base=4, novel=0,
+                                    deferred_frac=0.25)
+    fleet = OrswotBatch.from_numpy(*planes, device=dev)
+    fleet = fleet.merge(fleet)
+    seen, real = [], tile.merge
+
+    def capture(*args, **kw):
+        out = real(*args, **kw)
+        seen.append((args, out))
+        return out
+
+    monkeypatch.setattr(tile, "merge", capture)
+    obs = kernel_observatory()
+    obs.reset()
+    _build.reset_launch_counts()
+    obs.set_enabled(True)
+    try:
+        trk = stability.StabilityTracker(seed=5)
+        trk.observe_converged("peer", fleet)
+        trk.frontier(fleet)
+        rep = trk.audit(fleet, uni, sample=2048)
+    finally:
+        obs.set_enabled(False)
+    assert rep.ok and rep.sampled == 2048
+    assert _build.launch_counts()["orswot_merge"] >= 1 and seen
+    for args, out in seen:
+        sa, sb, (m_cap, d_cap) = args[:5], args[5:10], args[10:12]
+        _equal(out, tile.merge_reference(*sa, *sb, m_cap, d_cap))
+    table = obs.table()
+    assert len(seen) == _build.launch_counts()["orswot_merge"]
+    assert table["orswot_merge"]["timed"] == _build.launch_counts()["orswot_merge"]
+    assert table["orswot_merge"]["device_ms_total"] > 0 and table["orswot_merge"]["bytes"] > 0

@@ -52,14 +52,17 @@ def test_scan_covers_every_module():
     assert {"orswot_ops.py", "orswot_tile.py", "orswot_fold_aligned.py", "executor.py",
             "orswot_batch.py", "_build.py", "chip_smoke.py", "map_ops.py", "map_batch.py",
             "val_kernels.py", "digest.py", "tree.py", "delta.py", "occupancy.py", "policy.py",
-            "watermark.py", "compact.py", "repack.py"} <= names
+            "watermark.py", "compact.py", "repack.py", "query.py", "consistency.py",
+            "stability.py", "heat.py", "kernels.py", "capacity.py", "workload.py"} <= names
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "from_numpy", "zeros", "build_fleet_planes",
-                                   "map_zeros", "map_from_scalar", "build_tree"])
+                                   "map_zeros", "map_from_scalar", "build_tree",
+                                   "heat_tracker", "device_memory"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(entry, monkeypatch):
     from crdt_tpu_torch import (
-        CrdtConfig, DeviceUnavailableError, MapBatch, MVRegKernel, OrswotBatch, Universe,
+        CapacityTracker, CrdtConfig, DeviceUnavailableError, HeatTracker, MapBatch, MVRegKernel,
+        OrswotBatch, Universe,
     )
     from crdt_tpu_torch.device import resolve_device
     from crdt_tpu_torch.sync import build_tree
@@ -83,6 +86,8 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(entry, monkeypatc
         "map_from_scalar": lambda: MapBatch.from_scalar([], uni,
                                                         MVRegKernel.from_config(uni.config)),
         "build_tree": lambda: build_tree(np.arange(4, dtype=np.uint64)),
+        "heat_tracker": lambda: HeatTracker(),
+        "device_memory": lambda: CapacityTracker().sample_device_memory(),
     }
     with pytest.raises(DeviceUnavailableError, match="cuda"):
         calls[entry]()
