@@ -98,13 +98,16 @@ Phases, in order; any failure ends the run with a nonzero exit:
    self-merge), each with one add on its own seeded 1% of the rows; the
    digests of both (CUDA events, beside their bytes bound), both digest
    trees and ``simulate_descent``, whose set must equal
-   ``diverged_indices`` and the planted rows; the delta exchange both
-   ways (``gather_blobs`` → delta frame → decode →
-   ``OrswotDeltaApplier.apply``, the merge kernel on the diverged rows),
-   after which the digests must agree, each replica must equal the merge
-   kernel's full-fleet merge of the two, 64 sampled rows must equal the
-   scalar engine, and the delta frame must stay at or under 0.10 of the
-   full state's ``to_wire`` bytes; one replica regrown to M=32, D=8 and
+   ``diverged_indices`` and the planted rows; then the two replicas
+   reconcile as ``bench.py::bench_sync`` does, through ``sync_pair`` of
+   two ``SyncSession``s (hello, eager digests, delta frames both ways,
+   the merge kernel on the diverged rows, the verify), after which both
+   reports must show the planted rows, two digest rounds and no
+   fallback, each side's ``delta_ratio`` must stay at or under 0.10 of
+   the full state's ``to_wire`` bytes, each replica must equal the merge
+   kernel's full-fleet merge of the two and 64 sampled rows the scalar
+   engine; an idle re-sync of the converged replicas with the digest
+   tree must be one root frame each way; one replica regrown to M=32, D=8 and
    collected by ``GcEngine`` (watermark from both version vectors,
    settle, repack to M=16, D=2, an op log of 4 frames of 65,536 ops
    compacted), whose reclaimed bytes must equal the planes' difference
@@ -135,7 +138,7 @@ Phases, in order; any failure ends the run with a nonzero exit:
 
 Launch counts are reset just before phase 4 and read just after, and
 again around phases 5, 6, 6b, 7, 8, 9 and 11, and around each step of
-phase 10's main path (the replicas' plunger, the exchange, the GC pass
+phase 10's main path (the replicas' plunger, the session step, the GC pass
 and the truncate; the checks between them are not counted).  The last lines are the kernel table
 (JSON), the card's name and power limit, and ``{"ok": true, "device":
 ...}``.  Needs one CUDA card; exits nonzero without one.
@@ -1959,77 +1962,133 @@ def sync_replicas(dev, rng):
     return p, q, rows_p, rows_q, time.perf_counter() - t0
 
 
-def exchange(local, peer, ids, applier, uni):
-    """One direction of the delta exchange through the user's entry
-    points: ``gather_blobs`` on the peer, a delta frame, its decode, and
-    ``OrswotDeltaApplier.apply``.  Returns the new batch, the frame and the
-    step seconds (the applier's own: parse, H2D, gather + merge kernel,
-    scatter)."""
-    from crdt_tpu_torch.sync import delta
+def full_state_bytes(p, uni) -> tuple[int, float]:
+    """The bytes of ``p``'s full state on the wire (``to_wire``, chunk by
+    chunk) and the seconds the encode took."""
+    from crdt_tpu_torch import OrswotBatch
 
     t0 = time.perf_counter()
-    blobs = delta.gather_blobs(peer, ids, uni)
-    t1 = time.perf_counter()
-    frame = delta.encode_delta_frame(peer.clock.shape[0], ids, blobs)
-    _, payload = delta.decode_frame(frame)
-    fleet_n, got_ids, got_blobs = delta.decode_delta_payload(payload)
-    t2 = time.perf_counter()
-    if fleet_n != local.clock.shape[0] or not np.array_equal(got_ids, ids) or got_blobs != blobs:
-        raise AssertionError("the delta frame did not round-trip")
-    steps = {"gather_encode_s": t1 - t0, "frame_s": t2 - t1}
-    new = applier.apply(local, got_ids, got_blobs, seconds=steps)
-    steps["apply_s"] = time.perf_counter() - t2
-    return new, frame, steps
+    full = sum(sum(map(len, OrswotBatch(*(getattr(p, k)[s:s + CHUNK] for k in PLANES))
+                       .to_wire(uni))) for s in range(0, N_TOTAL, CHUNK))
+    return full, time.perf_counter() - t0
 
 
-def exchange_checks(p, q, p_new, q_new, ids, frames, uni, rng, k2, card: str) -> dict:
-    """The exchange's checks: each replica equals the merge kernel's
-    full-fleet merge of the two (local first), sampled rows equal the
-    scalar engine, and the larger delta frame stays under the done-bar of
-    the full state's ``to_wire`` bytes."""
-    from crdt_tpu_torch import OrswotBatch
+def session_step(p, q, uni, full_bytes: int, card: str) -> tuple:
+    """Step 3 of phase 10: ``sync_pair`` of two sessions, as
+    ``bench.py::bench_sync`` drives them, timed by the kernel observatory.
+    Returns both sessions, both reports and the step's numbers."""
+    import torch
+
+    from crdt_tpu_torch import SyncSession, _build, kernel_observatory, sync_pair
+
+    obs = kernel_observatory()
+    obs.reset()
+    torch.cuda.synchronize()
+    earlier_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    sa = SyncSession(p, uni, full_state_bytes=full_bytes, peer="q")
+    sb = SyncSession(q, uni, full_state_bytes=full_bytes, peer="p")
+    obs.set_enabled(True)
+    try:
+        t0 = time.perf_counter()
+        ra, rb = sync_pair(sa, sb)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        obs.set_enabled(False)
+    k2 = obs.table()["orswot_merge"]
+    out = {"wall_s": wall, "k2_launches": _build.launch_counts()["orswot_merge"],
+           "k2_device_ms": k2["device_ms_total"], "k2_timed": k2["timed"],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "earlier_peak_gb": earlier_peak}
+    for side, r in (("p", ra), ("q", rb)):
+        prof = r.profile
+        out[side] = {
+            "wall_s": prof.wall_ns / 1e9,
+            "split_s": {c: getattr(prof, f"{c}_ns") / 1e9
+                        for c in ("serialize", "network", "kernel", "other", "unaccounted")},
+            "bytes": {k: getattr(r, f"{k}_bytes_sent") for k in ("hello", "digest", "delta",
+                                                                  "full", "tree")},
+            "bytes_received": r.bytes_received, "delta_ratio": r.delta_ratio(full_bytes),
+            "diverged": r.diverged, "digest_rounds": r.digest_rounds,
+            "frames": [prof.frames_sent, prof.frames_received]}
+        log(f"  session {side}: {out[side]['wall_s']:.3f} s wall "
+            f"({ {c: round(v, 4) for c, v in out[side]['split_s'].items()} }); bytes sent "
+            f"{out[side]['bytes']}, received {r.bytes_received}; delta_ratio "
+            f"{out[side]['delta_ratio']:.5f} [{card}]")
+    log(f"  sync_pair {wall:.3f} s; the merge kernel launched {out['k2_launches']} times, "
+        f"{out['k2_device_ms']:.3f} ms on the device (observatory); peak device memory "
+        f"{out['peak_memory_gb']:.2f} GB [{card}]")
+    return sa, sb, ra, rb, out
+
+
+def session_checks(p, q, sa, sb, reports, ids, uni, rng, k2, card: str) -> None:
+    """The session step's checks: both converged on the planted rows
+    without a fallback, within the done-bar; each replica equals the merge
+    kernel's full-fleet merge of the two (local first); sampled rows equal
+    the scalar engine."""
     from crdt_tpu_torch.sync import delta
     from crdt_tpu_torch.utils.serde import from_binary, to_binary
 
-    out = {}
-    k2.check("the delta applier")
-    for got, (x, y), what in ((p_new, (p, q), "P"), (q_new, (q, p), "Q")):
-        same_planes(got, x.merge(y), f"{what} after the exchange against K2's full-fleet merge")
+    for r, what in zip(reports, ("P", "Q")):
+        if not (r.converged and r.diverged == ids.size and not r.full_state_fallback
+                and r.digest_rounds == 2 and not r.tree_mode):
+            raise AssertionError(f"session {what}: {r}")
+        if r.delta_ratio(sa.full_state_bytes) > SYNC_DONE_BAR:
+            raise AssertionError(f"session {what}: delta_ratio "
+                                 f"{r.delta_ratio(sa.full_state_bytes):.4f} > {SYNC_DONE_BAR}")
+    k2.check("the sessions' delta applies")
+    for got, (x, y), what in ((sa.batch, (p, q), "P"), (sb.batch, (q, p), "Q")):
+        same_planes(got, x.merge(y), f"{what} after the session against K2's full-fleet merge")
         k2.check("the full-fleet merge")
     sample = np.sort(rng.choice(ids, SYNC_SAMPLE, replace=False))
     blobs = {k: delta.gather_blobs(b, sample, uni) for k, b in
-             (("p", p), ("q", q), ("p_new", p_new), ("q_new", q_new))}
+             (("p", p), ("q", q), ("p_new", sa.batch), ("q_new", sb.batch))}
     for mine, theirs, new in (("p", "q", "p_new"), ("q", "p", "q_new")):
         for i in range(SYNC_SAMPLE):
             s = from_binary(blobs[mine][i])
             s.merge(from_binary(blobs[theirs][i]))
             if to_binary(s) != blobs[new][i]:
                 raise AssertionError(f"{new} != the scalar engine at object {sample[i]}")
+    log(f"  after the session: P == merge(P, Q) and Q == merge(Q, P) (K2, full fleet), "
+        f"{SYNC_SAMPLE} sampled rows == the scalar engine [{card}]")
+
+
+def idle_resync(a, b, uni, full_bytes: int, card: str) -> dict:
+    """An idle re-sync of the converged replicas with the digest tree on
+    both sides: one root frame each way, no delta and no full state."""
+    import torch
+
+    from crdt_tpu_torch import SyncSession, sync_pair
+
+    sa = SyncSession(a, uni, full_state_bytes=full_bytes, peer="q", digest_tree=True)
+    sb = SyncSession(b, uni, full_state_bytes=full_bytes, peer="p", digest_tree=True)
     t0 = time.perf_counter()
-    full_bytes = sum(sum(map(len, OrswotBatch(*(getattr(p, k)[s:s + CHUNK] for k in PLANES))
-                             .to_wire(uni))) for s in range(0, N_TOTAL, CHUNK))
-    out["full_state_bytes"] = full_bytes
-    out["delta_ratio"] = max(map(len, frames)) / full_bytes
-    if out["delta_ratio"] > SYNC_DONE_BAR:
-        raise AssertionError(f"delta_ratio {out['delta_ratio']:.4f} > {SYNC_DONE_BAR}")
-    log(f"  after the exchange: P == merge(P, Q) and Q == merge(Q, P) (K2, full fleet), "
-        f"{SYNC_SAMPLE} sampled rows == the scalar engine; full state {full_bytes} B "
-        f"(encoded in {time.perf_counter() - t0:.1f} s), delta_ratio "
-        f"{out['delta_ratio']:.5f} [{card}]")
+    reports = sync_pair(sa, sb)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in reports:
+        if not (r.converged and r.tree_mode and r.tree_frames_sent == 1 and r.diverged == 0
+                and r.delta_bytes_sent == r.full_bytes_sent == r.digest_bytes_sent == 0):
+            raise AssertionError(f"the idle tree re-sync was not one root frame: {r}")
+    out = {"wall_s": wall, "tree_bytes": [r.tree_bytes_sent for r in reports],
+           "profile_wall_s": [r.profile.wall_ns / 1e9 for r in reports],
+           "kernel_s": [r.profile.kernel_ns / 1e9 for r in reports]}
+    log(f"  idle re-sync (digest tree): one root frame each way, {out['tree_bytes']} B, "
+        f"{wall:.3f} s (kernel {out['kernel_s']}) [{card}]")
     return out
 
 
 def sync_gc_phase(dev, card: str):
-    """Phase 10: delta anti-entropy between two 1.25M-object replicas and
-    a causal-GC pass (A=64, M=16, D=2, u32).  Returns the merge kernel's
-    launches on the phase's main path (the plunger, the two applies, the
-    reference truncate), replica P and the diverged rows, which phase 11
-    reads."""
+    """Phase 10: two 1.25M-object replicas reconciled by two sync sessions,
+    and a causal-GC pass (A=64, M=16, D=2, u32).  Returns the merge
+    kernel's launches on the phase's main path (the plunger, the sessions'
+    applies, the reference truncate), replica P and the diverged rows,
+    which phase 11 reads."""
     import torch
 
     from crdt_tpu_torch import (
-        CrdtConfig, GcEngine, GcPolicy, OrswotBatch, OrswotDeltaApplier, OrswotKernel, Universe,
-        _build,
+        CrdtConfig, GcEngine, GcPolicy, OrswotBatch, OrswotKernel, Universe, _build,
     )
     from crdt_tpu_torch.dtypes import as_counters
     from crdt_tpu_torch.gc import compact
@@ -2080,20 +2139,18 @@ def sync_gc_phase(dev, card: str):
             f"descent {descent_ms:.1f} ms, {stats.levels} levels, {stats.payload_bytes} B per "
             f"side: {ids.size} rows == diverged_indices == the planted rows [{card}]")
 
-        # 3. the exchange, both ways, and the verify
-        p_new, frame_q, steps_p = exchange(p, q, ids, OrswotDeltaApplier(uni), uni)
-        q_new, frame_p, steps_q = exchange(q, p, ids, OrswotDeltaApplier(uni), uni)
-        if not np.array_equal(digest.digest_of(p_new, uni), digest.digest_of(q_new, uni)):
-            raise AssertionError("the replicas' digests differ after the exchange")
+        # 3. the exchange: two sessions through sync_pair, then an idle re-sync
+        rep["full_state_bytes"], rep["full_state_encode_s"] = full_state_bytes(p, uni)
+        _build.reset_launch_counts()
+        sa, sb, ra, rb, rep["session"] = session_step(p, q, uni, rep["full_state_bytes"], card)
         launches += _build.launch_counts()["orswot_merge"]
-        rep.update(into_p=steps_p, into_q=steps_q, frame_bytes=[len(frame_q), len(frame_p)])
-        log(f"  exchange: into P {steps_p}, into Q {steps_q}; delta frames {len(frame_q)} / "
-            f"{len(frame_p)} B; digests equal after [{card}]")
-
-        rep.update(exchange_checks(p, q, p_new, q_new, ids, (frame_q, frame_p), uni, rng, k2,
-                                   card))
-        chunk = OrswotBatch(*(getattr(p_new, k)[:CHUNK].clone() for k in PLANES))
-        del p_new, q_new
+        rep["delta_ratio"] = max(ra.delta_ratio(rep["full_state_bytes"]),
+                                 rb.delta_ratio(rep["full_state_bytes"]))
+        session_checks(p, q, sa, sb, (ra, rb), ids, uni, rng, k2, card)
+        rep["session"]["idle_resync"] = idle_resync(sa.batch, sb.batch, uni,
+                                                    rep["full_state_bytes"], card)
+        chunk = OrswotBatch(*(getattr(sa.batch, k)[:CHUNK].clone() for k in PLANES))
+        del sa, sb
         torch.cuda.empty_cache()
 
         # 4. GC: Q regrown as after a burst, the watermark from both vectors
@@ -2174,7 +2231,8 @@ def sync_gc_phase(dev, card: str):
             raise AssertionError("truncate_orswot through the merge kernel != the plain path")
         k2.check("the truncate")
         rep["k2_launches_checked"] = k2.checked
-    rep["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rep["peak_memory_gb"] = max(torch.cuda.max_memory_allocated() / 1e9,
+                                rep["session"]["peak_memory_gb"], rep["session"]["earlier_peak_gb"])
     log(f"  merge(GC'd Q, P) == merge(Q, P) by digest; truncate at the watermark "
         f"{trunc_ms:.3f} ms == the plain path; {len(k2.checked)} merge-kernel launches "
         f"bit-equal to merge_reference; peak device memory {rep['peak_memory_gb']:.2f} GB "
@@ -2678,7 +2736,7 @@ def main() -> int:
     log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
-    log("== phase 10: sync and GC (digests, descent, delta exchange, GC pass)")
+    log("== phase 10: sync and GC (digests, descent, two sync sessions, GC pass)")
     t0 = time.perf_counter()
     sync_k2, fleet, diverged = sync_gc_phase(dev, card)
     log(f"  phase 10 took {time.perf_counter() - t0:.1f} s; the merge kernel launched "

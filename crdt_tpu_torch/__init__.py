@@ -12,7 +12,8 @@ C++ codec (``native/``) and :class:`PipelinedWireLoop`, which folds wire
 blobs on the card — and the op path (``oplog/``, :class:`PipelinedOpLoop`):
 op frames folded into the planes on the card; delta anti-entropy
 (``sync/``: digests, digest trees, delta frames, :class:`OrswotDeltaApplier`
-merging the diverged rows through the merge kernel) and causal GC
+merging the diverged rows through the merge kernel, and :class:`SyncSession`
+and :func:`sync_pair`, which run the protocol between two replicas) and causal GC
 (``gc/``: the fleet watermark, settle, repack, truncate, :class:`GcEngine`);
 the read front-end (``serve/``: :func:`gather` and :class:`QueryEngine`,
 ``ReadCtx`` rows for every kind, consistency admission) and its
@@ -44,6 +45,10 @@ Quick start::
     # a read batch: ReadCtx rows of contains() probes and value() reads
     frame = gather(joined, obj, member=member)       # member -1: value()
     ctx = frame.read_ctx(0, uni)
+
+    # reconcile two replicas: digests, the diverged rows both ways, verify
+    a, b = SyncSession(replica_a, uni, peer="b"), SyncSession(replica_b, uni, peer="a")
+    report_a, report_b = sync_pair(a, b)               # a.batch == b.batch
 """
 
 from .batch import (
@@ -60,13 +65,17 @@ from .error import (
     KernelError,
     OpLogOverflowError,
     SyncProtocolError,
+    TransportError,
     WireFormatError,
 )
 from .gc import FleetWatermark, GcEngine, GcPolicy, GcReport, WatermarkReport
 from .obs import CapacityTracker, HeatTracker, StabilityTracker, kernel_observatory
 from .parallel import JoinError, JoinExecutor, JoinStats, join_all
 from .serve import QueryEngine, ReadRequest, ResultFrame, gather
-from .sync import DigestTree, OrswotDeltaApplier, build_tree, digest_of, version_vector
+from .sync import (
+    DigestTree, OrswotDeltaApplier, SyncReport, SyncSession, build_tree, digest_of,
+    queue_transport, sync_pair, version_vector,
+)
 from .utils.interning import IdentityRegistry, Registry, Universe
 
 __all__ = [
@@ -108,6 +117,9 @@ __all__ = [
     "ResultFrame",
     "StabilityTracker",
     "SyncProtocolError",
+    "SyncReport",
+    "SyncSession",
+    "TransportError",
     "Universe",
     "VClockBatch",
     "WatermarkReport",
@@ -117,6 +129,8 @@ __all__ = [
     "gather",
     "join_all",
     "kernel_observatory",
+    "queue_transport",
     "resolve_device",
+    "sync_pair",
     "version_vector",
 ]

@@ -103,6 +103,7 @@ _RESTYPES = {
 _LIBS: dict[tuple, ctypes.CDLL] = {}
 _LIBS_LOCK = threading.Lock()  # the wire loop's parse thread loads the codec too
 _LAUNCHES = {name: 0 for name in KERNELS}
+_LAUNCHES_LOCK = threading.Lock()  # two sync peers launch from two threads
 #: build seconds and ptxas report of each library built by this process
 BUILD_LOG: dict[str, dict] = {}
 
@@ -237,16 +238,23 @@ def launch(name: str, fn: str, *args, nbytes: int | None = None) -> None:
     if rc != 0:
         msg = lib.orswot_error_string(rc).decode(errors="replace")
         raise KernelError(f"{name} launch failed: CUDA error {rc} ({msg})")
-    _LAUNCHES[name] += 1
+    _count(name)
     if start is not None:
         obs.end(name, start, nbytes)
 
 
+def _count(name: str) -> None:
+    with _LAUNCHES_LOCK:
+        _LAUNCHES[name] += 1
+
+
 def launch_counts() -> dict[str, int]:
     """Successful launches of each kernel since the last reset."""
-    return dict(_LAUNCHES)
+    with _LAUNCHES_LOCK:
+        return dict(_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in _LAUNCHES:
+            _LAUNCHES[name] = 0

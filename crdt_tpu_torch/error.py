@@ -2,7 +2,7 @@
 
 Own copies of the JAX package's ``CrdtError``, ``ConflictingMarker``,
 ``CapacityOverflowError``, ``WireFormatError``, ``OpLogOverflowError``,
-``SyncProtocolError`` and ``raise_for_overflow``
+``SyncProtocolError``, ``TransportError`` and ``raise_for_overflow``
 (the port imports nothing of that package), plus the errors that only a
 GPU build has: a missing card, a kernel or the host codec that does not
 build, a launch that the CUDA runtime refuses.
@@ -61,6 +61,13 @@ class SyncProtocolError(CrdtError):
     or CRC (:mod:`crdt_tpu_torch.oplog.wire`).  Not a ``ValueError``: a
     malformed peer frame is an I/O-boundary fault to drop, not a local
     programming error."""
+
+
+class TransportError(CrdtError):
+    """A transport leg (send, recv, connect) failed below the sync
+    protocol: the frames were fine, moving them was not.  A protocol
+    error means the peer misbehaved; a transport error means the network
+    did."""
 
 
 class DeviceUnavailableError(CrdtError, RuntimeError):

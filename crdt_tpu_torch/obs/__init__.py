@@ -1,6 +1,8 @@
 """Observation state: plane occupancy and the capacity tracker
-(:mod:`~crdt_tpu_torch.obs.capacity`), the per-peer version-vector cache
-(:mod:`~crdt_tpu_torch.obs.convergence`), divergence aging, the
+(:mod:`~crdt_tpu_torch.obs.capacity`), per-peer convergence state
+(:mod:`~crdt_tpu_torch.obs.convergence`), the flight recorder
+(:mod:`~crdt_tpu_torch.obs.events`), session profiles and replication
+lag (:mod:`~crdt_tpu_torch.obs.latency`), divergence aging, the
 stability frontier and the lattice auditor
 (:mod:`~crdt_tpu_torch.obs.stability`), heat and placement
 (:mod:`~crdt_tpu_torch.obs.heat`) and the kernel observatory
@@ -8,12 +10,15 @@ stability frontier and the lattice auditor
 port declares no metric names."""
 
 from .capacity import CapacityTracker, Occupancy, PlaneCapacity, capacity_tracker
+from .events import FlightRecorder, recorder
 from .heat import HeatTracker, heat_tracker
 from .kernels import KernelObservatory, kernel_observatory, sample_device_memory
+from .latency import LagTracker, SessionProfile, lag_tracker
 from .stability import AuditReport, FrontierReport, StabilityTracker, stability_tracker
 
 __all__ = [
-    "AuditReport", "CapacityTracker", "FrontierReport", "HeatTracker", "KernelObservatory",
-    "Occupancy", "PlaneCapacity", "StabilityTracker", "capacity_tracker", "heat_tracker",
-    "kernel_observatory", "sample_device_memory", "stability_tracker",
+    "AuditReport", "CapacityTracker", "FlightRecorder", "FrontierReport", "HeatTracker",
+    "KernelObservatory", "LagTracker", "Occupancy", "PlaneCapacity", "SessionProfile",
+    "StabilityTracker", "capacity_tracker", "heat_tracker", "kernel_observatory", "lag_tracker",
+    "recorder", "sample_device_memory", "stability_tracker",
 ]

@@ -416,17 +416,19 @@ class HeatTracker:
             self._t0 = self._clock()
 
 
-_DEFAULT: Optional[HeatTracker] = None
+_DEFAULTS: Dict[torch.device, HeatTracker] = {}
 _DEFAULT_LOCK = threading.Lock()
 
 
-def tracker() -> HeatTracker:
-    """The process-global heat tracker (on the card)."""
-    global _DEFAULT
+def tracker(device=None) -> HeatTracker:
+    """The process-global heat tracker of ``device`` (default the card)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     with _DEFAULT_LOCK:
-        if _DEFAULT is None:
-            _DEFAULT = HeatTracker()
-    return _DEFAULT
+        if dev not in _DEFAULTS:
+            _DEFAULTS[dev] = HeatTracker(device=dev)
+        return _DEFAULTS[dev]
 
 
 heat_tracker = tracker

@@ -1,7 +1,7 @@
 """Delta frames and the diverged-row gather and apply (the port of the
-JAX package's ``sync/delta.py``: the envelope, and the digest, tree,
-delta, delta-chunk and full-state frames, byte for byte; the session's
-hello, fleet, ops and lag frames are not ported).
+JAX package's ``sync/delta.py``: the envelope, and the hello, fleet,
+ops, lag, digest, tree, delta, delta-chunk and full-state frames, byte
+for byte).
 
 Frame layout (all little-endian)::
 
@@ -22,10 +22,12 @@ scatters the result into a new batch, out of place.
 from __future__ import annotations
 
 import dataclasses
+import json
 import struct
 import threading
 import time
 import zlib
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -119,6 +121,113 @@ def _vv_at(payload: bytes, off: int) -> np.ndarray:
     if off + 8 * v != len(payload):
         raise ValueError("trailing bytes")
     return vv.astype(np.uint64)
+
+
+# -- session frames ------------------------------------------------------------
+
+
+class HelloInfo(NamedTuple):
+    """One peer's decoded hello: its trace proposal, node label,
+    capability flags, the protocol version it speaks (absent: v2) and its
+    transport's ARQ window (absent or 0: stop-and-wait)."""
+
+    trace: str
+    node: str
+    fleet_obs: bool
+    oplog: bool
+    ver: int
+    digest_tree: bool
+    lag: bool = False
+    window: int = 0
+
+
+def encode_hello_frame(trace: str, node: str, fleet_obs: bool, oplog: bool = False,
+                       digest_tree: bool = False, lag: bool = False, window: int = 0,
+                       ver: int = PROTOCOL_VERSION) -> bytes:
+    """A HELLO frame: sorted compact JSON of the trace proposal, node
+    label, version spoken, four capability flags and the ARQ window.
+    Always shipped at :data:`BASELINE_VERSION`: it precedes the
+    negotiation every later frame's version follows."""
+    payload = json.dumps(
+        {"trace": str(trace), "node": str(node), "fleet_obs": bool(fleet_obs),
+         "oplog": bool(oplog), "ver": int(ver), "digest_tree": bool(digest_tree),
+         "lag": bool(lag), "window": int(window)},
+        sort_keys=True, separators=(",", ":")).encode("utf-8")
+    return _frame(FRAME_HELLO, payload, version=BASELINE_VERSION)
+
+
+def decode_hello_payload(payload: bytes) -> HelloInfo:
+    """The :class:`HelloInfo` of a HELLO payload, labels bounded; a
+    missing key reads as no capability, v2, stop-and-wait."""
+    try:
+        doc = json.loads(payload.decode("utf-8"))
+        info = HelloInfo(str(doc["trace"])[:128], str(doc.get("node", "peer"))[:64],
+                         bool(doc.get("fleet_obs", False)), bool(doc.get("oplog", False)),
+                         int(doc.get("ver", BASELINE_VERSION)),
+                         bool(doc.get("digest_tree", False)), bool(doc.get("lag", False)),
+                         max(0, int(doc.get("window", 0))))
+    except (UnicodeDecodeError, ValueError, KeyError, TypeError) as e:
+        raise _malformed("hello", e) from None
+    if not info.trace:
+        raise _reject("payload", "hello payload carries an empty trace ID")
+    return info
+
+
+def encode_fleet_frame(snapshot_frame: bytes, version: int | None = None) -> bytes:
+    """A FLEET frame: a fleet-observatory snapshot frame (versioned and
+    checked by its own codec) in the sync envelope."""
+    return _frame(FRAME_FLEET, bytes(snapshot_frame), version=version)
+
+
+def decode_fleet_payload(payload: bytes) -> bytes:
+    """The nested fleet-snapshot frame of a FLEET payload."""
+    return bytes(payload)
+
+
+def encode_ops_sync_frame(ops_frame: bytes, version: int | None = None) -> bytes:
+    """An OPS frame: an op-batch frame
+    (:func:`crdt_tpu_torch.oplog.wire.encode_ops_frame`) in the sync
+    envelope."""
+    return _frame(FRAME_OPS, bytes(ops_frame), version=version)
+
+
+def decode_ops_sync_payload(payload: bytes) -> bytes:
+    """The nested op-batch frame of an OPS payload."""
+    return bytes(payload)
+
+
+_LAG_ENTRY = struct.Struct("<HQq")
+
+
+def encode_lag_frame(entries, proc_tag: str, version: int | None = None) -> bytes:
+    """A LAG frame, the write-to-visible sidecar: the origin's clock-domain
+    tag (at most 255 bytes) and its ``(actor, counter, mono_ns)`` ingest
+    stamps."""
+    proc = str(proc_tag).encode("utf-8")[:255]
+    payload = b"".join([struct.pack("<B", len(proc)), proc, struct.pack("<I", len(entries))]
+                       + [_LAG_ENTRY.pack(int(a), int(c), int(t)) for a, c, t in entries])
+    return _frame(FRAME_LAG, payload, version=version)
+
+
+def decode_lag_payload(payload: bytes) -> tuple[str, list]:
+    """``(origin_proc_tag, [(actor, counter, mono_ns), ...])``."""
+    try:
+        (plen,) = struct.unpack_from("<B", payload, 0)
+        raw = payload[1:1 + plen]
+        if len(raw) != plen:
+            raise ValueError("proc tag truncated")
+        proc = raw.decode("utf-8")
+        off = 1 + plen
+        (n,) = struct.unpack_from("<I", payload, off)
+        off += 4
+        if off + n * _LAG_ENTRY.size != len(payload):
+            raise ValueError(f"expected {n} entries, payload holds "
+                             f"{(len(payload) - off) // _LAG_ENTRY.size}")
+        entries = [_LAG_ENTRY.unpack_from(payload, off + i * _LAG_ENTRY.size)
+                   for i in range(n)]
+    except (struct.error, ValueError, UnicodeDecodeError) as e:
+        raise _malformed("lag", e) from None
+    return proc, entries
 
 
 # -- digest frames -------------------------------------------------------------

@@ -796,3 +796,59 @@ def test_audit_launches_the_merge_kernel_and_the_observatory_counts_it(dev, monk
     assert len(seen) == _build.launch_counts()["orswot_merge"]
     assert table["orswot_merge"]["timed"] == _build.launch_counts()["orswot_merge"]
     assert table["orswot_merge"]["device_ms_total"] > 0 and table["orswot_merge"]["bytes"] > 0
+
+
+class _Windowed:
+    def __init__(self, send, recv, window=4):
+        self.send, self.recv, self.window = send, recv, window
+
+    def negotiate_window(self, peer_window):
+        self.window = min(self.window, int(peer_window))
+        return self.window
+
+
+def _session_run(p, q, uni, mode):
+    import threading
+
+    from crdt_tpu_torch.obs import HeatTracker
+    from crdt_tpu_torch.sync import session
+
+    kw = dict(digest_tree=mode != "flat")
+    sa = session.SyncSession(p, uni, peer="q", heat=HeatTracker(device=p.device), **kw)
+    sb = session.SyncSession(q, uni, peer="p", heat=HeatTracker(device=q.device), **kw)
+    if mode != "stream":
+        ra, rb = session.sync_pair(sa, sb)
+    else:
+        (send_a, recv_a), (send_b, recv_b) = session.queue_transport()
+        out = {}
+        t = threading.Thread(target=lambda: out.setdefault(
+            "b", sb.sync(_Windowed(send_b, recv_b))), daemon=True)
+        t.start()
+        ra = sa.sync(_Windowed(send_a, recv_a))
+        t.join(timeout=120)
+        assert not t.is_alive()
+        rb = out["b"]
+    return sa.batch, sb.batch, ra, rb
+
+
+@pytest.mark.parametrize("mode", ["flat", "tree", "stream"])
+def test_session_pair_on_the_card_equals_the_cpu(dev, mode):
+    """Two sessions on the card (N=4,096, A=64, M=16, D=2) converge to the
+    planes the same pair reaches on the CPU, and every diverged apply
+    launches the merge kernel."""
+    from crdt_tpu_torch.sync import delta
+
+    uni, ((p, _), (q, _)) = _sync_pair(dev, n=4096, a=64, m=16, d=2)
+    want = _session_run(p, q, uni, mode)
+    _build.reset_launch_counts()
+    got = _session_run(_on(p, dev), _on(q, dev), uni, mode)
+    launches = _build.launch_counts()["orswot_merge"]
+    for g, w in zip(got[:2], want[:2]):
+        for f in ("clock", "ids", "dots", "d_ids", "d_clocks"):
+            assert getattr(g, f).device.type == "cuda"
+            assert torch.equal(getattr(g, f).cpu(), getattr(w, f)), f
+    ra, rb = got[2:]
+    assert ra.converged and rb.converged and ra.diverged == want[2].diverged > 0
+    assert ra.tree_mode == (mode != "flat") and ra.streaming == (mode == "stream")
+    applies = 2 * (-(-ra.diverged // delta.DELTA_CHUNK_ROWS) if mode == "stream" else 1)
+    assert launches >= applies

@@ -53,7 +53,8 @@ def test_scan_covers_every_module():
             "orswot_batch.py", "_build.py", "chip_smoke.py", "map_ops.py", "map_batch.py",
             "val_kernels.py", "digest.py", "tree.py", "delta.py", "occupancy.py", "policy.py",
             "watermark.py", "compact.py", "repack.py", "query.py", "consistency.py",
-            "stability.py", "heat.py", "kernels.py", "capacity.py", "workload.py"} <= names
+            "stability.py", "heat.py", "kernels.py", "capacity.py", "workload.py",
+            "session.py", "events.py", "latency.py"} <= names
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "from_numpy", "zeros", "build_fleet_planes",
