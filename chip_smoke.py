@@ -63,10 +63,11 @@ Phases, in order; any failure ends the run with a nonzero exit:
    MVReg (250k x K=8 x A=64) fleets, u64, generated on the card from a
    seed: R replicas folded through the batch ``merge`` (timed by CUDA
    events, beside the bytes bound), the fold held against the same
-   merges on the CPU and, on 2,048 sampled objects, against the scalar
-   engine; a wire round (``to_wire`` of each replica, ``from_wire`` →
-   fold → ``to_wire``, byte-equal to ``to_wire`` of the device fold, every
-   blob through the host codec, a truncated blob raising
+   merges on the CPU (MVReg: its first 32,768 objects) and, on 512
+   sampled objects (MVReg 256), against the scalar engine; a wire round
+   (``to_wire`` of each replica, ``from_wire`` → fold → ``to_wire``,
+   byte-equal to ``to_wire`` of the device fold, every blob through the
+   host codec, a truncated blob raising
    ``WireFormatError``); then 16 op frames of 65,536 ``inc``/``dec``/``set``
    ops through ``encode_ops_frame``/``decode_ops_frame`` into the
    GCounter, PNCounter and LWWReg fleets (frame 11 before frame 10, every
@@ -76,21 +77,21 @@ Phases, in order; any failure ends the run with a nonzero exit:
    are torch ops, as the JAX package's are ``jnp``.
 
 9. Map — ``Map<K, Orswot>`` and ``Map<K, MVReg>`` (65,536 objects in
-   chunks of 8,192) and ``Map<K, Map<K2, MVReg>>`` (2,048 in chunks of
+   chunks of 8,192) and ``Map<K, Map<K2, MVReg>>`` (1,024 in chunks of
    256) at the config-default widths (A=64, K=16, M=32, D=8,
    mv_capacity 8; u32): each chunk's R=4 replica fleets, built on the card
    by seeded ``apply_up``/``apply_rm`` rounds (the nested maps from seeded
    scalar maps through ``from_wire``), joined by ``JoinExecutor`` and
    truncated by a seeded clock; the nested sets merge through the merge
    kernel, three launches per Map merge.  Chunk 0 of each composition is
-   held against the same join on the CPU (its first 512 objects, 16 of
-   the nested maps) and, on 64 sampled objects, the port's scalar engine, and
-   makes a wire round through its codec leg (blobs ``to_binary`` of the
-   scalar result, codec share 1.0); each of the merge kernel's three
-   launches in one Map<K, Orswot> merge is held against
-   ``merge_reference`` at the nested shape it was handed and timed there,
-   and that merge is profiled once (device busy time, idle share, top
-   ops).  One ``maps`` JSON line carries the numbers.
+   held against the same join on the CPU (its first 512 objects, 128 of
+   ``Map<K, Orswot>``, 16 of the nested maps) and, on 64 sampled
+   objects, the port's scalar engine, and makes a wire round through its
+   codec leg (blobs ``to_binary`` of the scalar result, codec share
+   1.0); each of the merge kernel's three launches in one Map<K, Orswot>
+   merge is held against ``merge_reference`` at the nested shape it was
+   handed and timed there, and that merge is profiled once (device busy
+   time, idle share, top ops).  One ``maps`` JSON line carries the numbers.
 
 10. sync and GC — two replicas of 1.25M objects at the north-star widths
    (``bench.py::bench_sync``'s shape: ``anti_entropy_fleets(base=4,
@@ -104,9 +105,9 @@ Phases, in order; any failure ends the run with a nonzero exit:
    the merge kernel on the diverged rows, the verify), after which both
    reports must show the planted rows, two digest rounds and no
    fallback, each side's ``delta_ratio`` must stay at or under 0.10 of
-   the full state's ``to_wire`` bytes, each replica must equal the merge
-   kernel's full-fleet merge of the two and 64 sampled rows the scalar
-   engine; an idle re-sync of the converged replicas with the digest
+   the full state's ``to_wire`` bytes (its first chunk's times 20), each
+   replica must equal the merge kernel's full-fleet merge of the two and
+   64 sampled rows the scalar engine; an idle re-sync of the converged replicas with the digest
    tree must be one root frame each way; one replica regrown to M=32, D=8 and
    collected by ``GcEngine`` (watermark from both version vectors,
    settle, repack to M=16, D=2, an op log of 4 frames of 65,536 ops
@@ -136,12 +137,38 @@ Phases, in order; any failure ends the run with a nonzero exit:
    one batch of each other kind on a small fleet against the CPU.  One
    ``reads`` JSON line carries the numbers.
 
+12. cluster transport — phase 11's replica P as it stands (1.25M objects,
+   A=64, M=16, D=2) after one plunger self-merge (phase 11's op writes
+   leave member slots out of ascending-id order, which a session keeps
+   on the rows it does not touch and the full-fleet merge it is checked
+   against sorts), and Q = P, each with one add on its own seeded 1% of
+   the rows (phase 10's ``diverge``); a listener on 127.0.0.1:0 dialed
+   through ``FlappingDialer(schedule=(False, False, True))`` with each
+   attempt recorded in a ``Membership(suspect_after=2)`` (the peer must
+   go alive → suspect → alive); each end ``ResilientTransport(
+   FaultyTransport(TcpTransport(sock), plan))`` with ``bench_sync``'s
+   policy (30 s deadlines, 0.1 s first timer, 2 s backoff cap, a budget
+   of 256, window 16) and a seeded plan per side of 2% drops, duplicates,
+   truncations and delays; two flat ``SyncSession``s on two threads (v4,
+   streaming at window 16), then both ends closed.  Phase 10's session
+   checks (converged on the planted rows, no fallback, ``delta_ratio`` ≤
+   0.10, each replica equal to the merge kernel's full-fleet merge, 64
+   rows against the scalar engine), every launch of the merge kernel
+   against ``merge_reference``, each planned fault kind injected at least
+   once across the two sides and the ARQ's retransmits, duplicates and
+   corrupt envelopes non-zero.  One ``cluster`` JSON line carries the
+   numbers: the frames and bytes each side put on its socket (counted by
+   ``SocketCount``, retransmits included), each side's ARQ counts, RTT
+   estimate and injected faults, the roster's transitions, the merge
+   kernel's launches and device time, peak memory.
+
 Launch counts are reset just before phase 4 and read just after, and
-again around phases 5, 6, 6b, 7, 8, 9 and 11, and around each step of
-phase 10's main path (the replicas' plunger, the session step, the GC pass
-and the truncate; the checks between them are not counted).  The last lines are the kernel table
-(JSON), the card's name and power limit, and ``{"ok": true, "device":
-...}``.  Needs one CUDA card; exits nonzero without one.
+again around phases 5, 6, 6b, 7, 8, 9 and 11, around phase 12's sessions,
+and around each step of phase 10's main path (the replicas' plunger, the
+session step, the GC pass and the truncate; the checks between them are
+not counted).  The last lines are the kernel table (JSON), the card's
+name and power limit, and ``{"ok": true, "device": ...}``.  Needs one
+CUDA card; exits nonzero without one.
 """
 
 from __future__ import annotations
@@ -175,12 +202,20 @@ PLANES = ("clock", "ids", "dots", "d_ids", "d_clocks")
 FLAT_A, FLAT_PN_A, FLAT_N, FLAT_LWW_N, FLAT_U, FLAT_K, FLAT_MV_N = (
     64, 32, 1_000_000, 10_000_000, 1024, 8, 250_000)
 FLAT_WIRE_R, FLAT_SAMPLE, FLAT_ITERS, FLAT_FRAMES, FLAT_FRAME_OPS = 2, 2048, 5, 16, 65_536
+# the chip budget's cut 1 (the script ran 719 s on an H100 whose host ran
+# every phase ~25% slower than the run before): MVReg's scalar check
+# samples FLAT_MVREG_SAMPLE objects (the other folds FLAT_SAMPLE), and its
+# CPU plain-path check takes its first FLAT_MVREG_CPU objects
+FLAT_MVREG_SAMPLE, FLAT_MVREG_CPU = 256, 32_768
 # the Map phase (9), u32 at the config defaults: A=64, K=16, M=32, D=8,
 # mv_capacity 8; Map<K, Orswot> and Map<K, MVReg> 65,536 objects in chunks
-# of 8,192, Map<K, Map<K2, MVReg>> 2,048 in chunks of 256; R=4 replicas of
+# of 8,192, Map<K, Map<K2, MVReg>> 1,024 in chunks of 256; R=4 replicas of
 # 12 actors each (the base's are 0-11), built by 4 shared and 3 own op rounds
 MAP_A, MAP_K, MAP_M, MAP_D, MAP_KV = 64, 16, 32, 8, 8
-MAP_N, MAP_CHUNK, MAP_NESTED_N, MAP_NESTED_CHUNK = 65_536, 8_192, 2_048, 256
+# MAP_NESTED_N is the chip budget's cut 3 (2,048 before) and
+# MAP_ORSWOT_CPU its cut 2 (512 before): see FLAT_MVREG_SAMPLE
+MAP_N, MAP_CHUNK, MAP_NESTED_N, MAP_NESTED_CHUNK = 65_536, 8_192, 1_024, 256
+MAP_ORSWOT_CPU = 128
 MAP_R, MAP_ACTORS, MAP_MEMBERS, MAP_ROUNDS, MAP_SAMPLE = 4, 12, 64, (4, 3), 64
 MAP_K2_SETS = 16_384  # sets per call of the merge kernel's plain version
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -1288,13 +1323,13 @@ def flat_fleets(dev):
     }
 
 
-def flat_sample_check(reps, fold, uni, what: str):
-    """``FLAT_SAMPLE`` objects of the device fold against the port's scalar
+def flat_sample_check(reps, fold, uni, what: str, sample: int):
+    """``sample`` objects of the device fold against the port's scalar
     engine folding the same states (``to_binary`` bytes equal)."""
     from crdt_tpu_torch.utils.serde import to_binary
 
     n = flat_planes(fold)[0].shape[0]
-    rows = rows_of(np.random.RandomState(SEED + 5).choice(n, min(n, FLAT_SAMPLE), replace=False),
+    rows = rows_of(np.random.RandomState(SEED + 5).choice(n, min(n, sample), replace=False),
                    flat_planes(fold)[0].device)
     acc = flat_rows(reps[0], rows).to_scalar(uni)
     for b in reps[1:]:
@@ -1361,22 +1396,27 @@ def flat_fold(name, cls, reps, wire_r, extra, uni, card: str):
     ops = 4 * n * FLAT_K * FLAT_K * FLAT_A if cls.__name__ == "MVRegBatch" else 0
     b_ms, b_by = bound_ms(2 * state, state + flags, ops)
     merge_ms = ms / (len(reps) - 1)
-    cpu = left_fold([cls(*(x.cpu() for x in flat_planes(b))) for b in reps])
-    same_flat(fold, cpu, f"{name}: the device fold against the CPU plain path")
+    mv = cls.__name__ == "MVRegBatch"
+    k = min(n, FLAT_MVREG_CPU) if mv else n
+    sample = min(n, FLAT_MVREG_SAMPLE if mv else FLAT_SAMPLE)
+    cpu = left_fold([cls(*(x[:k].cpu() for x in flat_planes(b))) for b in reps])
+    same_flat(flat_rows(fold, slice(0, k)), cpu,
+              f"{name}: the device fold against the CPU plain path")
     t2 = time.perf_counter()
-    flat_sample_check(reps, fold, uni, name)
+    flat_sample_check(reps, fold, uni, name, sample)
     t3 = time.perf_counter()
     leg = {"GCounterBatch": "gcounter", "VClockBatch": "vclock", "PNCounterBatch": "pncounter",
            "LWWRegBatch": "lww", "GSetBatch": "gset", "MVRegBatch": "mvreg"}[cls.__name__]
     wire = flat_wire_round(cls, reps[:wire_r], extra, uni, leg, name)
     row = {"objects": n, "replicas": len(reps), "fold_ms": ms, "merge_ms": merge_ms,
            "merges_per_s": n * len(reps) / (ms / 1e3), "bound_ms_per_merge": b_ms,
-           "bound_by": b_by, "share_of_bound": b_ms / merge_ms, "state_bytes": state, **wire,
+           "bound_by": b_by, "share_of_bound": b_ms / merge_ms, "state_bytes": state,
+           "cpu_checked": k, "sampled": sample, **wire,
            "phase_s": {"fold_timing": t1 - t0, "cpu_check": t2 - t1, "sample_check": t3 - t2,
                        "wire_round_and_checks": time.perf_counter() - t3}}
     log(f"  {name}: {n} objects x {len(reps)} replicas, fold {ms:.4f} ms ({merge_ms:.4f} ms per "
         f"merge, bound {b_ms:.4f} ms by {b_by}, {row['merges_per_s'] / 1e6:.2f}M merges/s); "
-        f"device == CPU plain path, {min(n, FLAT_SAMPLE)} sampled == scalar engine; wire round "
+        f"device == CPU plain path on {k}, {sample} sampled == scalar engine; wire round "
         f"({wire['wire_replicas']} replicas): encode {wire['encode_s']:.3f} s, parse "
         f"{wire['parse_s']:.3f} s, fold+encode {wire['fold_encode_s']:.3f} s, "
         f"{wire['wire_bytes_per_object']:.1f} B/object, codec share 1.0 [{card}]")
@@ -1807,7 +1847,7 @@ def map_phase(dev, card: str):
         mv_capacity=MAP_KV))
     cfg = uni.config
     comps = {
-        "map_orswot": (OrswotKernel.from_config(cfg), MAP_N, MAP_CHUNK, 512,
+        "map_orswot": (OrswotKernel.from_config(cfg), MAP_N, MAP_CHUNK, MAP_ORSWOT_CPU,
                        lambda vk, n, s: map_op_fleets(uni, vk, "apply_add", n, s, dev)),
         "map_mvreg": (MVRegKernel.from_config(cfg), MAP_N, MAP_CHUNK, 512,
                       lambda vk, n, s: map_op_fleets(uni, vk, "apply_put", n, s, dev)),
@@ -1927,6 +1967,25 @@ def timed_ms(fn):
     return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
 
 
+def diverge(base, rng, actor: int, member: int, dev):
+    """``base`` (unchanged) with one add of ``actor`` (member ``member``,
+    the next dot) on its own seeded ``SYNC_DIV`` share of the rows, and
+    those rows: the divergence phases 10 and 12 plant."""
+    import torch
+
+    from crdt_tpu_torch.sync import delta
+
+    n = base.clock.shape[0]
+    k = int(n * SYNC_DIV)
+    rows = np.sort(rng.choice(n, k, replace=False))
+    idx = rows_of(rows, dev)
+    sub = delta.take_rows(base, idx)
+    full = torch.full((k,), actor, device=dev)
+    # the biased order is the unsigned one: max + 1 is the next dot
+    sub = sub.apply_add(full, sub.clock.amax(dim=-1) + 1, torch.full_like(full, member))
+    return delta.put_rows(base, idx, sub), rows
+
+
 def sync_replicas(dev, rng):
     """Replica P (62,500-object chunks of ``anti_entropy_fleets``, one
     plunger self-merge) and replica Q = P; then each takes one add on its
@@ -1934,7 +1993,6 @@ def sync_replicas(dev, rng):
     import torch
 
     from crdt_tpu_torch import OrswotBatch
-    from crdt_tpu_torch.sync import delta
     from crdt_tpu_torch.utils.testdata import anti_entropy_fleets
 
     t0 = time.perf_counter()
@@ -1946,31 +2004,25 @@ def sync_replicas(dev, rng):
     built = OrswotBatch(*(torch.cat([getattr(b, k) for b in parts]) for k in PLANES))
     del parts
     base = built.merge(built)
-    k = int(N_TOTAL * SYNC_DIV)
-
-    def diverge(actor, member):
-        rows = np.sort(rng.choice(N_TOTAL, k, replace=False))
-        idx = rows_of(rows, dev)
-        sub = delta.take_rows(base, idx)
-        full = torch.full((k,), actor, device=dev)
-        # the biased order is the unsigned one: max + 1 is the next dot
-        sub = sub.apply_add(full, sub.clock.amax(dim=-1) + 1, torch.full_like(full, member))
-        return delta.put_rows(base, idx, sub), rows
-
-    (p, rows_p), (q, rows_q) = diverge(1, 1 << 20), diverge(0, 1 << 21)
+    (p, rows_p), (q, rows_q) = (diverge(base, rng, 1, 1 << 20, dev),
+                                diverge(base, rng, 0, 1 << 21, dev))
     torch.cuda.synchronize()
     return p, q, rows_p, rows_q, time.perf_counter() - t0
 
 
-def full_state_bytes(p, uni) -> tuple[int, float]:
+def full_state_bytes(p, uni, estimate: bool = False) -> tuple[int, float]:
     """The bytes of ``p``'s full state on the wire (``to_wire``, chunk by
-    chunk) and the seconds the encode took."""
+    chunk) and the seconds the encode took.  With ``estimate``, the first
+    chunk's bytes times the chunks (the chip budget's cut 4 for phase 10,
+    whose replicas are uniform: the whole fleet's encode takes 3.6-4.6 s;
+    phase 11's skewed writes make phase 12's first chunk no sample)."""
     from crdt_tpu_torch import OrswotBatch
 
     t0 = time.perf_counter()
+    stop = CHUNK if estimate else N_TOTAL
     full = sum(sum(map(len, OrswotBatch(*(getattr(p, k)[s:s + CHUNK] for k in PLANES))
-                       .to_wire(uni))) for s in range(0, N_TOTAL, CHUNK))
-    return full, time.perf_counter() - t0
+                       .to_wire(uni))) for s in range(0, stop, CHUNK))
+    return full * (N_TOTAL // stop), time.perf_counter() - t0
 
 
 def session_step(p, q, uni, full_bytes: int, card: str) -> tuple:
@@ -2022,11 +2074,18 @@ def session_step(p, q, uni, full_bytes: int, card: str) -> tuple:
     return sa, sb, ra, rb, out
 
 
-def session_checks(p, q, sa, sb, reports, ids, uni, rng, k2, card: str) -> None:
+def session_checks(p, q, sa, sb, reports, ids, uni, rng, k2, card: str,
+                   self_merge: bool = False) -> None:
     """The session step's checks: both converged on the planted rows
     without a fallback, within the done-bar; each replica equals the merge
     kernel's full-fleet merge of the two (local first); sampled rows equal
-    the scalar engine."""
+    the scalar engine.  With ``self_merge`` (replicas whose member slots
+    are out of ascending-id order, which the merge sorts and a row the
+    session does not ship keeps), each replica's rows outside ``ids`` are
+    first held bit for bit against the replica before the session, and the
+    replica is self-merged before it is held against the full-fleet merge."""
+    import torch
+
     from crdt_tpu_torch.sync import delta
     from crdt_tpu_torch.utils.serde import from_binary, to_binary
 
@@ -2038,7 +2097,20 @@ def session_checks(p, q, sa, sb, reports, ids, uni, rng, k2, card: str) -> None:
             raise AssertionError(f"session {what}: delta_ratio "
                                  f"{r.delta_ratio(sa.full_state_bytes):.4f} > {SYNC_DONE_BAR}")
     k2.check("the sessions' delta applies")
+    if self_merge:
+        kept = torch.ones(p.clock.shape[0], dtype=torch.bool, device=p.clock.device)
+        kept[rows_of(ids, p.clock.device)] = False
     for got, (x, y), what in ((sa.batch, (p, q), "P"), (sb.batch, (q, p), "Q")):
+        if self_merge:
+            for lo in range(0, kept.shape[0], CHUNK):
+                rows = kept[lo:lo + CHUNK]
+                for name in PLANES:
+                    if not torch.equal(getattr(got, name)[lo:lo + CHUNK][rows],
+                                       getattr(x, name)[lo:lo + CHUNK][rows]):
+                        raise AssertionError(f"{what} after the session: {name} differs from "
+                                             f"{what} before it on a row it did not ship")
+            got = got.merge(got)
+            k2.check("the self-merge")
         same_planes(got, x.merge(y), f"{what} after the session against K2's full-fleet merge")
         k2.check("the full-fleet merge")
     sample = np.sort(rng.choice(ids, SYNC_SAMPLE, replace=False))
@@ -2050,7 +2122,8 @@ def session_checks(p, q, sa, sb, reports, ids, uni, rng, k2, card: str) -> None:
             s.merge(from_binary(blobs[theirs][i]))
             if to_binary(s) != blobs[new][i]:
                 raise AssertionError(f"{new} != the scalar engine at object {sample[i]}")
-    log(f"  after the session: P == merge(P, Q) and Q == merge(Q, P) (K2, full fleet), "
+    log(f"  after the session: P == merge(P, Q) and Q == merge(Q, P) (K2, full fleet"
+        f"{', after a self-merge; the rows not shipped unchanged' if self_merge else ''}), "
         f"{SYNC_SAMPLE} sampled rows == the scalar engine [{card}]")
 
 
@@ -2140,7 +2213,8 @@ def sync_gc_phase(dev, card: str):
             f"side: {ids.size} rows == diverged_indices == the planted rows [{card}]")
 
         # 3. the exchange: two sessions through sync_pair, then an idle re-sync
-        rep["full_state_bytes"], rep["full_state_encode_s"] = full_state_bytes(p, uni)
+        rep["full_state_bytes"], rep["full_state_encode_s"] = full_state_bytes(p, uni,
+                                                                                 estimate=True)
         _build.reset_launch_counts()
         sa, sb, ra, rb, rep["session"] = session_step(p, q, uni, rep["full_state_bytes"], card)
         launches += _build.launch_counts()["orswot_merge"]
@@ -2392,7 +2466,8 @@ def read_kinds(dev, rng, card: str) -> dict:
 def read_phase(dev, card: str, fleet, diverged):
     """Phase 11: the read front-end on the north-star fleet (phase 10's
     replica P).  Returns the merge kernel's launches on the phase's path
-    (the auditor's self-merge)."""
+    (the auditor's self-merge) and the fleet with the writes folded in,
+    which phase 12 reconciles."""
     import torch
 
     from crdt_tpu_torch import (CapacityTracker, CrdtConfig, GcEngine, GcPolicy, HeatTracker,
@@ -2611,6 +2686,248 @@ def read_phase(dev, card: str, fleet, diverged):
         f"[{card}]")
     print("reads " + json.dumps(rep, default=lambda x: x.tolist() if hasattr(x, "tolist")
                                 else str(x)), flush=True)
+    return launches, fleet
+
+
+# -- phase 12 ------------------------------------------------------------------
+
+# cluster transport: phase 11's replica P against a copy, each diverged on
+# its own seeded 1% of the rows, reconciled by two flat sessions over
+# loopback TCP through the ARQ (bench.py::bench_sync's policy: 30 s
+# deadlines, 0.1 s first timer, 2 s backoff cap, a budget of 256, window
+# 16) with 2% of each fault kind injected under it on both sides; the dial
+# goes through a flapping dialer that refuses twice, which takes the peer
+# to suspect in a roster that suspects after 2 failures
+CLUSTER_FAULTS = dict(drop=0.02, duplicate=0.02, truncate=0.02, delay=0.02)
+CLUSTER_POLICY = dict(send_deadline_s=30.0, recv_deadline_s=30.0, ack_timeout_s=0.1,
+                      max_backoff_s=2.0, retry_budget=256, window=16)
+CLUSTER_DIAL = (False, False, True)
+CLUSTER_JOIN_S = 180.0
+
+
+class SocketCount:
+    """A transport that counts the frames and bytes it puts on its socket
+    (each frame's 4-byte length prefix included): under the fault
+    injector, so retransmits and injected duplicates count and drops do
+    not."""
+
+    def __init__(self, inner):
+        self.inner, self.frames, self.bytes = inner, 0, 0
+
+    def send(self, frame):
+        self.inner.send(frame)
+        self.frames += 1
+        self.bytes += 4 + len(frame)
+
+    def recv(self, timeout=None):
+        return self.inner.recv(timeout)
+
+    def close(self):
+        self.inner.close()
+
+
+def dial_through_roster(card: str):
+    """Step 2 of phase 12: a listener on 127.0.0.1:0 and a dial to it
+    through ``FlappingDialer(schedule=CLUSTER_DIAL)``, each attempt
+    recorded in a ``Membership(suspect_after=2)``.  Returns both connected
+    sockets, the roster, the refusals' ``cluster.peer_state`` events and
+    the flight recorder's last sequence number before the dial."""
+    import socket
+
+    from crdt_tpu_torch.cluster import FlappingDialer, Membership, SUSPECT
+    from crdt_tpu_torch.error import PeerUnavailableError
+    from crdt_tpu_torch.obs import convergence, events
+
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(1)
+    srv.settimeout(30.0)
+    roster = Membership(suspect_after=2, tracker=convergence.ConvergenceTracker())
+    roster.add("q", address=srv.getsockname())
+    dialer = FlappingDialer(lambda peer: socket.create_connection(peer.address, timeout=30.0),
+                            CLUSTER_DIAL)
+    before = events.recorder().snapshot()
+    mark = before[-1]["seq"] if before else 0
+    sock = None
+    for _ in CLUSTER_DIAL:
+        try:
+            sock = dialer(roster.get("q"))
+        except PeerUnavailableError:
+            roster.record_failure("q")
+            continue
+        break
+    conn, _ = srv.accept()
+    srv.close()
+    if sock is None or dialer.refused != 2 or roster.get("q").state != SUSPECT:
+        raise AssertionError(f"the flapping dial: {dialer.refused} refused, roster "
+                             f"{roster.snapshot()}")
+    for x in (sock, conn):  # a frame-at-a-time link: no Nagle delay on the acks
+        x.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    refusals = [e["fields"] for e in events.recorder().snapshot("cluster.peer_state")
+                if e["seq"] > mark and e["fields"]["peer"] == "q"]
+    log(f"  dial: {dialer.refused} refusals, then connected; roster {roster.snapshot()['q']} "
+        f"[{card}]")
+    return sock, conn, roster, refusals, mark
+
+
+def cluster_sessions(sa, sb, ra, rb):
+    """Run ``sa`` over ``ra`` here and ``sb`` over ``rb`` on a thread.
+    Whichever finishes first lingers on its link until the other has
+    returned (``cluster.linger``); then each side closes its own end.  Returns both reports, the seconds
+    of the syncs and of the whole exchange with the closes, and each
+    link's ``counts()`` when its session returned."""
+    import threading
+
+    from crdt_tpu_torch.cluster import linger
+
+    out, err, done = {}, [], threading.Event()
+    t0 = time.perf_counter()
+
+    def run_b():
+        try:
+            out["b"] = sb.sync(rb)
+            out["b_s"], out["b_counts"] = time.perf_counter() - t0, rb.counts()
+            linger(rb, done.is_set, CLUSTER_JOIN_S)
+            rb.close()
+        except BaseException as e:  # re-raised in the caller's thread
+            err.append(e)
+
+    t = threading.Thread(target=run_b, name="phase12-q", daemon=True)
+    t.start()
+    try:
+        out["a"] = sa.sync(ra)
+        out["a_s"], out["a_counts"] = time.perf_counter() - t0, ra.counts()
+    finally:
+        done.set()
+        linger(ra, lambda: not t.is_alive(), CLUSTER_JOIN_S)
+        t.join(timeout=CLUSTER_JOIN_S)
+        ra.close()
+    if t.is_alive():
+        raise AssertionError("the peer session over TCP hung")
+    if err:
+        raise err[0]
+    return (out["a"], out["b"], max(out["a_s"], out["b_s"]), time.perf_counter() - t0,
+            (out["a_counts"], out["b_counts"]))
+
+
+def cluster_phase(dev, card: str, fleet):
+    """Phase 12: phase 11's replica P and a copy, each diverged on its own
+    1% of the rows, reconciled over loopback TCP by two flat sessions
+    through ``ResilientTransport(FaultyTransport(TcpTransport))`` with
+    faults injected on both sides (A=64, M=16, D=2, u32).  Returns the
+    merge kernel's launches on the phase's path (the sessions' applies)."""
+    import torch
+
+    from crdt_tpu_torch import CrdtConfig, SyncSession, Universe, _build, kernel_observatory
+    from crdt_tpu_torch.cluster import ALIVE, FaultPlan, FaultyTransport, ResilientTransport
+    from crdt_tpu_torch.cluster import RetryPolicy, TcpTransport
+    from crdt_tpu_torch.obs import events
+
+    uni = Universe.identity(CrdtConfig.gpu_default(num_actors=A, member_capacity=M,
+                                                   deferred_capacity=D))
+    rng = np.random.RandomState(SEED + 12)
+    t_phase = time.perf_counter()
+    rep = {"card": card, "objects": N_TOTAL, "shape": [A, M, D], "divergence": SYNC_DIV,
+           "fleet": "phase 11's replica P as it stands", "faults": CLUSTER_FAULTS, "policy": CLUSTER_POLICY}
+    torch.cuda.reset_peak_memory_stats()
+    with K2Launches() as k2:
+        # 1. the second replica: P as phase 11 left it (its op writes leave
+        # member slots out of ascending-id order) and its copy Q each take
+        # their own adds
+        p, rows_p = diverge(fleet, rng, 1, 1 << 20, dev)
+        q, rows_q = diverge(fleet, rng, 0, 1 << 21, dev)
+        del fleet
+        planted = np.union1d(rows_p, rows_q)
+        rep["full_state_bytes"], rep["full_state_encode_s"] = full_state_bytes(p, uni)
+        torch.cuda.synchronize()
+        rep["build_s"] = time.perf_counter() - t_phase
+        log(f"  replicas: P and Q = P, {len(rows_p)} + {len(rows_q)} rows diverged by one add "
+            f"each ({len(planted)} distinct); full state {rep['full_state_bytes']} B")
+
+        # 2. the link, dialed through the roster
+        sock, conn, roster, refusals, mark = dial_through_roster(card)
+        ends, taps = [], []
+        for k, (x, name) in enumerate(((sock, "p"), (conn, "q"))):
+            wire = SocketCount(TcpTransport(x, default_timeout=60.0))
+            faulty = FaultyTransport(wire, FaultPlan(seed=SEED + 120 + k, **CLUSTER_FAULTS),
+                                     name=f"faulty-{name}")
+            ends.append(ResilientTransport(faulty, RetryPolicy(**CLUSTER_POLICY), name=name,
+                                           seed=SEED + 122 + k))
+            taps.append((wire, faulty))
+
+        # 3. the sessions: v4, flat, streaming at the negotiated window
+        obs = kernel_observatory()
+        obs.reset()
+        sa = SyncSession(p, uni, full_state_bytes=rep["full_state_bytes"], peer="q")
+        sb = SyncSession(q, uni, full_state_bytes=rep["full_state_bytes"], peer="p")
+        _build.reset_launch_counts()
+        obs.set_enabled(True)
+        try:
+            ra, rb, sync_s, link_s, at_sync = cluster_sessions(sa, sb, *ends)
+            torch.cuda.synchronize()
+        finally:
+            obs.set_enabled(False)
+        launches = _build.launch_counts()["orswot_merge"]
+        table = obs.table()["orswot_merge"]
+        if ra.converged and rb.converged:
+            roster.record_success("q")
+        transitions = refusals + [e["fields"] for e in events.recorder().snapshot(
+            "cluster.peer_state") if e["seq"] > mark and e["fields"]["peer"] == "q"
+            and e["fields"] not in refusals]
+        if [(e["old"], e["new"]) for e in transitions] != [("alive", "suspect"),
+                                                           ("suspect", "alive")] \
+                or roster.get("q").state != ALIVE:
+            raise AssertionError(f"the peer's transitions {transitions}")
+
+        # 4. the checks: phase 10's, streaming at window 16, the faults and
+        # their recovery, every merge-kernel launch against merge_reference
+        for r, what in ((ra, "P"), (rb, "Q")):
+            if not (r.streaming and r.window == CLUSTER_POLICY["window"]):
+                raise AssertionError(f"session {what} over TCP: streaming {r.streaming}, "
+                                     f"window {r.window}")
+        if launches == 0 or len(k2.seen) != launches:
+            raise AssertionError(f"the merge kernel launched {launches} times in the sessions, "
+                                 f"{len(k2.seen)} captured")
+        session_checks(p, q, sa, sb, (ra, rb), planted, uni, rng, k2, card, self_merge=True)
+        injected = {kind: sum(f.injected[kind] for _, f in taps) for kind in CLUSTER_FAULTS}
+        counts = [e.counts() for e in ends]
+        recovered = {k: sum(c[k] for c in counts) for k in ("retransmits", "duplicates",
+                                                            "corrupt")}
+        if not all(injected.values()) or not all(recovered.values()):
+            raise AssertionError(f"injected {injected}, recovered {recovered}")
+        rep["k2_launches_checked"] = len(k2.checked)
+    rep.update(
+        sync_s=sync_s, link_s=link_s, k2_launches=launches,
+        k2_device_ms=table["device_ms_total"], k2_timed=table["timed"],
+        delta_ratio=max(r.delta_ratio(rep["full_state_bytes"]) for r in (ra, rb)),
+        transitions=transitions, roster=roster.snapshot(), injected_total=injected,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    for side, r, end, (wire, faulty), synced in (("p", ra, ends[0], taps[0], at_sync[0]),
+                                                  ("q", rb, ends[1], taps[1], at_sync[1])):
+        prof = r.profile
+        rep[side] = {
+            "wall_s": prof.wall_ns / 1e9,
+            "split_s": {c: getattr(prof, f"{c}_ns") / 1e9
+                        for c in ("serialize", "network", "kernel", "other", "unaccounted")},
+            "bytes": {k: getattr(r, f"{k}_bytes_sent") for k in ("hello", "digest", "delta",
+                                                                  "full")},
+            "delta_chunks": r.delta_chunks_sent, "diverged": r.diverged,
+            "socket_frames": wire.frames, "socket_bytes": wire.bytes,
+            "counts": synced, "counts_closed": end.counts(), "rtt": end.rtt.snapshot(),
+            "rto_s": end.current_rto(), "injected": faulty.injected}
+        split = {c: round(v, 4) for c, v in rep[side]["split_s"].items()}
+        log(f"  session {side} over TCP: {rep[side]['wall_s']:.3f} s wall ({split}); "
+            f"{r.delta_chunks_sent} delta chunks; on the socket {wire.frames} frames, "
+            f"{wire.bytes} B; ARQ {synced}; srtt {rep[side]['rtt']['srtt_s']} s over "
+            f"{rep[side]['rtt']['samples']} samples, RTO {end.current_rto():.4f} s; injected "
+            f"{faulty.injected} [{card}]")
+    rep["phase_s"] = time.perf_counter() - t_phase
+    log(f"  sessions over TCP {sync_s:.3f} s (with the serve and close {link_s:.3f} s); the merge "
+        f"kernel {launches} launches, {table['device_ms_total']:.3f} ms on the device "
+        f"(observatory), each bit-equal to merge_reference; peer q {transitions[0]['old']} -> "
+        f"{transitions[0]['new']} -> {transitions[1]['new']}; peak device memory "
+        f"{rep['peak_memory_gb']:.2f} GB; phase 12 {rep['phase_s']:.1f} s [{card}]")
+    print("cluster " + json.dumps(rep), flush=True)
     return launches
 
 
@@ -2746,9 +3063,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("== phase 11: the read front-end (gathers, consistency, frontier, heat, audit, capacity)")
-    read_k2 = read_phase(dev, card, fleet, diverged)
+    read_k2, fleet = read_phase(dev, card, fleet, diverged)
     if read_k2 == 0:
         raise AssertionError("phase 11 never launched the merge kernel")
+    torch.cuda.empty_cache()
+
+    log("== phase 12: cluster transport (two sessions over loopback TCP through the ARQ, "
+        "faults injected)")
+    cluster_k2 = cluster_phase(dev, card, fleet)
+    del fleet
 
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -2758,6 +3081,7 @@ def main() -> int:
          "map_launches": map_k2_launches if name == "orswot_merge" else 0,
          "sync_launches": sync_k2 if name == "orswot_merge" else 0,
          "read_launches": read_k2 if name == "orswot_merge" else 0,
+         "cluster_launches": cluster_k2 if name == "orswot_merge" else 0,
          "max_abs_err": worst[name], "ms": timed[name]["ms"],
          "plain_ms": timed[name]["plain_ms"], "bound_ms": timed[name]["bound_ms"],
          "bound_by": timed[name]["bound_by"], "library_ms": None}

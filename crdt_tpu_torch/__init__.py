@@ -13,7 +13,10 @@ blobs on the card — and the op path (``oplog/``, :class:`PipelinedOpLoop`):
 op frames folded into the planes on the card; delta anti-entropy
 (``sync/``: digests, digest trees, delta frames, :class:`OrswotDeltaApplier`
 merging the diverged rows through the merge kernel, and :class:`SyncSession`
-and :func:`sync_pair`, which run the protocol between two replicas) and causal GC
+and :func:`sync_pair`, which run the protocol between two replicas), the
+transports a session runs over and the peer roster (``cluster/``:
+:class:`TcpTransport`, the ARQ :class:`ResilientTransport`, seeded fault
+injection, :class:`Membership`) and causal GC
 (``gc/``: the fleet watermark, settle, repack, truncate, :class:`GcEngine`);
 the read front-end (``serve/``: :func:`gather` and :class:`QueryEngine`,
 ``ReadCtx`` rows for every kind, consistency admission) and its
@@ -49,12 +52,16 @@ Quick start::
     # reconcile two replicas: digests, the diverged rows both ways, verify
     a, b = SyncSession(replica_a, uni, peer="b"), SyncSession(replica_b, uni, peer="a")
     report_a, report_b = sync_pair(a, b)               # a.batch == b.batch
+
+    # or each side in its own process, over TCP with the ARQ
+    report = SyncSession(replica, uni, peer="b").sync(ResilientTransport(TcpTransport(sock)))
 """
 
 from .batch import (
     GCounterBatch, GSetBatch, LWWRegBatch, MapBatch, MapKernel, MVRegBatch, MVRegKernel,
     OrswotBatch, OrswotKernel, PipelinedOpLoop, PipelinedWireLoop, PNCounterBatch, VClockBatch,
 )
+from .cluster import ResilientTransport, TcpTransport
 from .config import CrdtConfig, MERGE_IMPLS
 from .device import resolve_device
 from .error import (
@@ -64,8 +71,12 @@ from .error import (
     DeviceUnavailableError,
     KernelError,
     OpLogOverflowError,
+    PeerUnavailableError,
     SyncProtocolError,
+    SyncTimeoutError,
+    TransportClosedError,
     TransportError,
+    TransportFrameError,
     WireFormatError,
 )
 from .gc import FleetWatermark, GcEngine, GcPolicy, GcReport, WatermarkReport
@@ -108,18 +119,24 @@ __all__ = [
     "OrswotBatch",
     "OrswotDeltaApplier",
     "OrswotKernel",
+    "PeerUnavailableError",
     "PNCounterBatch",
     "PipelinedOpLoop",
     "PipelinedWireLoop",
     "QueryEngine",
     "ReadRequest",
     "Registry",
+    "ResilientTransport",
     "ResultFrame",
     "StabilityTracker",
     "SyncProtocolError",
     "SyncReport",
     "SyncSession",
+    "SyncTimeoutError",
+    "TcpTransport",
+    "TransportClosedError",
     "TransportError",
+    "TransportFrameError",
     "Universe",
     "VClockBatch",
     "WatermarkReport",

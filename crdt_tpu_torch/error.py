@@ -2,8 +2,10 @@
 
 Own copies of the JAX package's ``CrdtError``, ``ConflictingMarker``,
 ``CapacityOverflowError``, ``WireFormatError``, ``OpLogOverflowError``,
-``SyncProtocolError``, ``TransportError`` and ``raise_for_overflow``
-(the port imports nothing of that package), plus the errors that only a
+``SyncProtocolError``, ``TransportError`` (with its four subclasses
+``SyncTimeoutError``, ``PeerUnavailableError``, ``TransportClosedError``
+and ``TransportFrameError``) and ``raise_for_overflow`` (the port
+imports nothing of that package), plus the errors that only a
 GPU build has: a missing card, a kernel or the host codec that does not
 build, a launch that the CUDA runtime refuses.
 """
@@ -68,6 +70,27 @@ class TransportError(CrdtError):
     protocol: the frames were fine, moving them was not.  A protocol
     error means the peer misbehaved; a transport error means the network
     did."""
+
+
+class SyncTimeoutError(TransportError):
+    """A transport leg blew its deadline: the peer, or the path to it,
+    went quiet mid-session (a receive deadline elapsed, or a frame went
+    unacked for its whole send deadline)."""
+
+
+class PeerUnavailableError(TransportError):
+    """The peer cannot be reached: dial refused, link closed on the
+    receive path, or the transport's retry budget ran dry."""
+
+
+class TransportClosedError(TransportError):
+    """The underlying byte channel closed (the peer hung up, an injected
+    disconnect, a send that timed out partway through a frame)."""
+
+
+class TransportFrameError(TransportError):
+    """An ARQ envelope was malformed: truncated header, length or CRC
+    mismatch, unknown kind.  The receiver treats it as loss."""
 
 
 class DeviceUnavailableError(CrdtError, RuntimeError):

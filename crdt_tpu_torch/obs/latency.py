@@ -1,5 +1,6 @@
-"""Where a sync session's time goes, and how stale a peer's writes are
-(the port of the JAX package's ``SessionProfile``, ``LagTracker`` and
+"""Where a sync session's time goes, how long a link's round trip is,
+and how stale a peer's writes are (the port of the JAX package's
+``SessionProfile``, ``RttEstimator``, ``LagTracker`` and
 ``lag_tracker()`` from ``obs/latency.py``).
 
 * :class:`SessionProfile` accounts one session's wall time in integer
@@ -7,6 +8,8 @@
   in send or recv), ``kernel`` (digests, trees, delta apply) and
   ``other`` (the piggybacks).  ``serialize + network + kernel + other +
   unaccounted == wall`` holds to the nanosecond by construction.
+* :class:`RttEstimator` is Jacobson/Karels smoothing of a link's round
+  trips; the ARQ transport's adaptive retransmit timer reads it.
 * :class:`LagTracker` measures write-to-visible lag per peer: the origin
   stamps each ingested dot ``(actor, counter)`` with its monotonic clock,
   the stamps ride a converged session as the LAG sidecar frame, and the
@@ -99,6 +102,60 @@ class SessionProfile:
                 f"serialize={self.serialize_ns / ms:.2f} network={self.network_ns / ms:.2f} "
                 f"kernel={self.kernel_ns / ms:.2f} other={self.other_ns / ms:.2f} "
                 f"unaccounted={self.unaccounted_ns / ms:.2f})")
+
+
+class RttEstimator:
+    """SRTT and RTTVAR per Jacobson/Karels (RFC 6298's shape).
+
+    The first sample seeds ``srtt = s``, ``rttvar = s/2``; each later one
+    sets ``rttvar = (1-β)·rttvar + β·|srtt - s|``, then ``srtt = (1-α)·srtt
+    + α·s``, with α=1/8 and β=1/4.  :meth:`rto` is ``srtt + 4·rttvar``
+    clamped into the caller's bounds.  One lock: the transport's thread
+    and a reader may race."""
+
+    __slots__ = ("alpha", "beta", "srtt_s", "rttvar_s", "samples", "last_sample_s", "_lock")
+
+    def __init__(self, alpha: float = 1.0 / 8, beta: float = 1.0 / 4):
+        self.alpha = float(alpha)
+        self.beta = float(beta)
+        self.srtt_s: Optional[float] = None
+        self.rttvar_s: Optional[float] = None
+        self.samples = 0
+        self.last_sample_s: Optional[float] = None
+        self._lock = threading.Lock()
+
+    def observe(self, sample_s: float) -> None:
+        """Fold one round-trip sample in; a negative one (a clock that
+        stepped back) is ignored.  Callers apply Karn's rule."""
+        s = float(sample_s)
+        if s < 0.0:
+            return
+        with self._lock:
+            if self.srtt_s is None:
+                self.srtt_s = s
+                self.rttvar_s = s / 2.0
+            else:
+                self.rttvar_s = (1.0 - self.beta) * self.rttvar_s + self.beta * abs(self.srtt_s - s)
+                self.srtt_s = (1.0 - self.alpha) * self.srtt_s + self.alpha * s
+            self.samples += 1
+            self.last_sample_s = s
+
+    def rto(self, floor_s: float, cap_s: float,
+            default_s: Optional[float] = None) -> Optional[float]:
+        """``srtt + 4·rttvar`` clamped to ``[floor_s, cap_s]``; before the
+        first sample ``default_s`` (clamped too), or None without one."""
+        with self._lock:
+            raw = None if self.srtt_s is None else self.srtt_s + 4.0 * self.rttvar_s
+        if raw is None:
+            if default_s is None:
+                return None
+            raw = default_s
+        return min(max(raw, float(floor_s)), float(cap_s))
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"srtt_s": self.srtt_s, "rttvar_s": self.rttvar_s, "samples": self.samples,
+                    "last_sample_s": self.last_sample_s}
 
 
 def _percentile(sorted_samples: Sequence[float], q: float) -> float:

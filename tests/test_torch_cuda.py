@@ -852,3 +852,86 @@ def test_session_pair_on_the_card_equals_the_cpu(dev, mode):
     assert ra.tree_mode == (mode != "flat") and ra.streaming == (mode == "stream")
     applies = 2 * (-(-ra.diverged // delta.DELTA_CHUNK_ROWS) if mode == "stream" else 1)
     assert launches >= applies
+
+
+def _tcp_session_run(p, q, uni, seed):
+    """Two flat sessions over loopback TCP, each end
+    ``ResilientTransport(FaultyTransport(TcpTransport))`` with a mixed
+    plan; whichever finishes first answers its peer until both are done."""
+    import socket
+    import threading
+
+    from crdt_tpu_torch.cluster import (
+        FaultPlan, FaultyTransport, ResilientTransport, RetryPolicy, TcpTransport, linger,
+    )
+    from crdt_tpu_torch.obs import HeatTracker
+    from crdt_tpu_torch.sync import session
+
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(1)
+    srv.settimeout(10.0)
+    c = socket.create_connection(srv.getsockname(), timeout=10.0)
+    s, _ = srv.accept()
+    srv.close()
+    policy = RetryPolicy(send_deadline_s=30.0, recv_deadline_s=30.0, ack_timeout_s=0.05,
+                         max_backoff_s=0.5, retry_budget=2000)
+    ends = [ResilientTransport(FaultyTransport(TcpTransport(x, 30.0), FaultPlan(
+        seed=seed + k, drop=0.1, duplicate=0.1, truncate=0.1, delay=0.1)), policy,
+        seed=seed + k) for k, x in enumerate((c, s))]
+    sessions = [session.SyncSession(b, uni, peer=peer, heat=HeatTracker(device=b.device))
+                for b, peer in ((p, "q"), (q, "p"))]
+    out, done = {}, [threading.Event(), threading.Event()]
+
+    def run(k):
+        try:
+            out[k] = sessions[k].sync(ends[k])
+        except BaseException as e:  # reported below
+            out[k] = e
+        done[k].set()
+        linger(ends[k], done[1 - k].is_set, 60.0)
+
+    ts = [threading.Thread(target=run, args=(k,), daemon=True) for k in (0, 1)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=120.0)
+    assert not any(t.is_alive() for t in ts), "a session over TCP hung"
+    for e in ends:
+        e.close()
+    for k in (0, 1):
+        if isinstance(out[k], BaseException):
+            raise out[k]
+    return sessions[0].batch, sessions[1].batch, out[0], out[1], ends
+
+
+def test_session_over_tcp_on_the_card_equals_the_cpu(dev, monkeypatch):
+    """Two sessions on the card (N=4,096, A=64, M=16, D=2) over loopback
+    TCP through the ARQ with faults injected converge to the planes the
+    same pair reaches on the CPU, and every merge-kernel launch equals
+    ``merge_reference``."""
+    uni, ((p, _), (q, _)) = _sync_pair(dev, n=4096, a=64, m=16, d=2)
+    want = _tcp_session_run(p, q, uni, seed=90)
+    seen, real = [], tile.merge
+
+    def capture(*args, **kw):
+        out = real(*args, **kw)
+        seen.append((args, out))
+        return out
+
+    monkeypatch.setattr(tile, "merge", capture)
+    _build.reset_launch_counts()
+    got = _tcp_session_run(_on(p, dev), _on(q, dev), uni, seed=95)
+    launches = _build.launch_counts()["orswot_merge"]
+    for g, w in zip(got[:2], want[:2]):
+        for f in ("clock", "ids", "dots", "d_ids", "d_clocks"):
+            assert getattr(g, f).device.type == "cuda"
+            assert torch.equal(getattr(g, f).cpu(), getattr(w, f)), f
+    ra, rb = got[2:4]
+    assert ra.converged and rb.converged and ra.diverged == want[2].diverged > 0
+    assert ra.streaming and ra.window == 16
+    assert launches >= 2 and len(seen) == launches
+    for args, out in seen:
+        sa, sb, (m_cap, d_cap) = args[:5], args[5:10], args[10:12]
+        _equal(out, tile.merge_reference(*sa, *sb, m_cap, d_cap))
+    assert sum(e.counts()["retransmits"] + e.counts()["corrupt"] for e in got[4]) > 0

@@ -54,7 +54,8 @@ def test_scan_covers_every_module():
             "val_kernels.py", "digest.py", "tree.py", "delta.py", "occupancy.py", "policy.py",
             "watermark.py", "compact.py", "repack.py", "query.py", "consistency.py",
             "stability.py", "heat.py", "kernels.py", "capacity.py", "workload.py",
-            "session.py", "events.py", "latency.py"} <= names
+            "session.py", "events.py", "latency.py", "transport.py", "faults.py",
+            "membership.py"} <= names
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "from_numpy", "zeros", "build_fleet_planes",
