@@ -162,9 +162,38 @@ Phases, in order; any failure ends the run with a nonzero exit:
    estimate and injected faults, the roster's transitions, the merge
    kernel's launches and device time, peak memory.
 
+13. gossip fleet — three ``ClusterNode``s on the card, n0 holding phase
+   12's reconciled replica P and n1, n2 copies of it (1.25M objects, A=64,
+   M=16, D=2, u32), each with the digest tree, its own lag, stability and
+   heat trackers, a loopback TCP listener accepting through
+   ``ResilientTransport(TcpTransport)`` (window 16, no faults), a roster of
+   the other two and a ``GossipScheduler(fanout=2, seed=i)``.  A fleet
+   round runs the three schedulers' ``run_round`` in turn; before each of
+   the first two rounds each node takes 5,461 writes of phase 11's key
+   stream (writer actor i + 1, members 200-203), minted on the main
+   thread by ``derive_add_ctx(node.write_clock())`` and ``submit_ops``.  A
+   reader thread meanwhile serves batches of 8,192 reads (a quarter
+   ``value()``, the rest ``contains()`` on members below 32) through
+   ``serve_frames`` on the nodes in turn: read-your-writes batches carry
+   the node's ``write_vv()`` and probe its acknowledged writes, monotonic
+   ones the node's last token, one in 8 runs under ``frontier``; parks
+   wait up to 10 s.  Rounds run until the digests agree and a whole round
+   finds no divergence (at most 8).  Checks: no failed session leg (a
+   refusal by a node's busy bound is counted apart), no rejected RYW or
+   monotonic read and every probed write read as a member, one eventual
+   request frame byte-equal on all nodes, the rows no write touched equal
+   to the start, each node self-merged equal to the merge kernel's join
+   of the start with each node's op batches applied by ``OpApplier``, and
+   every merge-kernel launch against ``merge_reference``.  One ``gossip``
+   JSON line carries the numbers: rounds and their walls, each session
+   leg's wall and profile split, the merge kernel's launches and device
+   time, writes and reads per second with the serve stages, parks and
+   rejections per mode, peak memory.
+
 Launch counts are reset just before phase 4 and read just after, and
 again around phases 5, 6, 6b, 7, 8, 9 and 11, around phase 12's sessions,
-and around each step of phase 10's main path (the replicas' plunger, the
+around phase 13's rounds and reads, and around each step of phase 10's
+main path (the replicas' plunger, the
 session step, the GC pass and the truncate; the checks between them are
 not counted).  The last lines are the kernel table (JSON), the card's
 name and power limit, and ``{"ok": true, "device": ...}``.  Needs one
@@ -174,6 +203,7 @@ CUDA card; exits nonzero without one.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -2815,7 +2845,8 @@ def cluster_phase(dev, card: str, fleet):
     1% of the rows, reconciled over loopback TCP by two flat sessions
     through ``ResilientTransport(FaultyTransport(TcpTransport))`` with
     faults injected on both sides (A=64, M=16, D=2, u32).  Returns the
-    merge kernel's launches on the phase's path (the sessions' applies)."""
+    merge kernel's launches on the phase's path (the sessions' applies)
+    and the reconciled replica P, which phase 13 gossips."""
     import torch
 
     from crdt_tpu_torch import CrdtConfig, SyncSession, Universe, _build, kernel_observatory
@@ -2928,6 +2959,495 @@ def cluster_phase(dev, card: str, fleet):
         f"{transitions[0]['new']} -> {transitions[1]['new']}; peak device memory "
         f"{rep['peak_memory_gb']:.2f} GB; phase 12 {rep['phase_s']:.1f} s [{card}]")
     print("cluster " + json.dumps(rep), flush=True)
+    return launches, sa.batch
+
+
+# -- phase 13 ------------------------------------------------------------------
+
+# the gossip fleet: three ClusterNodes on the card, each a 1.25M-object
+# replica (phase 12's P and two copies) with the digest tree, its own lag,
+# stability and heat trackers, a loopback TCP listener accepting through
+# ResilientTransport(TcpTransport) at window 16 (no faults) and a
+# GossipScheduler(fanout=2, seed=i) over a roster of the other two.  Rounds
+# run the three schedulers in turn; before each of the first
+# GOSSIP_WRITE_ROUNDS rounds every node takes GOSSIP_WRITES // 3 writes of
+# phase 11's key stream (writer actor i + 1), minted on the main thread by
+# derive_add_ctx(node.write_clock()) and submit_ops.  Members are 200 to
+# 200 + GOSSIP_MEMBERS - 1: after phases 10-12 a row holds up to 10 members
+# (4 of its own, 4 of phase 11's writes, 2 of phase 12's), and the stream's
+# Zipf-hot rows take writes of every member, so 16 members would overflow
+# M=16.  A reader thread serves GOSSIP_READ_B-row batches through
+# serve_frames on the nodes in turn, GOSSIP_FRAMES_PER_CALL frames a call,
+# GOSSIP_READ_PAUSE_S apart: an offered load, not a closed loop (a reader
+# that never pauses holds the interpreter's lock for most of a round, and
+# the sessions' digests, dispatched op by op from Python, then run at half
+# their speed: the phase took 83.2 s so on an H100).
+GOSSIP_NODES, GOSSIP_WRITES, GOSSIP_WRITE_ROUNDS, GOSSIP_MAX_ROUNDS = 3, 16_384, 2, 8
+GOSSIP_MEMBER0, GOSSIP_MEMBERS = 200, 4
+GOSSIP_READ_B, GOSSIP_FRAMES_PER_CALL, GOSSIP_PARK_S, GOSSIP_RYW_ROWS = 8192, 4, 10.0, 6144
+GOSSIP_READ_PAUSE_S = 0.2
+# one batch in 8 under each mode of this cycle (index: batch number mod 8)
+GOSSIP_MODES = ("frontier", "ryw", "monotonic", "eventual", "ryw", "monotonic", "eventual",
+                "ryw")
+GOSSIP_POLICY = dict(send_deadline_s=60.0, recv_deadline_s=60.0, ack_timeout_s=0.1,
+                     max_backoff_s=2.0, retry_budget=256, window=16)
+GOSSIP_BUSY_S, GOSSIP_JOIN_S = 30.0, 180.0
+
+
+class GossipMember:
+    """One node of the phase 13 fleet: the ``ClusterNode``, a listener on
+    127.0.0.1:0 whose accepted links run the acceptor's leg through
+    ``ResilientTransport(TcpTransport)``, a dialer of the same stack and
+    the node's scheduler.  Accepted sessions land in ``inbound`` as
+    ``(peer, report or exception, wall seconds)``."""
+
+    def __init__(self, i: int, batch, uni):
+        import socket
+        import threading
+
+        from crdt_tpu_torch.cluster import ClusterNode
+
+        self.i, self.name = i, f"n{i}"
+        self.node = ClusterNode(self.name, batch, uni, digest_tree=True,
+                                busy_timeout_s=GOSSIP_BUSY_S)
+        self.srv = socket.socket()
+        self.srv.bind(("127.0.0.1", 0))
+        self.srv.listen(8)
+        self.srv.settimeout(0.2)
+        self.stop = threading.Event()
+        self.inbound, self.threads, self.links = [], [], 0
+        self.listener = threading.Thread(target=self._listen, name=f"listen-{self.name}",
+                                         daemon=True)
+        self.listener.start()
+
+    def link(self, sock):
+        import socket
+
+        from crdt_tpu_torch.cluster import ResilientTransport, RetryPolicy, TcpTransport
+
+        sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self.links += 1
+        return ResilientTransport(TcpTransport(sock, default_timeout=60.0),
+                                  RetryPolicy(**GOSSIP_POLICY), name=self.name,
+                                  seed=SEED + 130 + 100 * self.i + self.links)
+
+    def _listen(self):
+        import socket
+        import threading
+
+        while not self.stop.is_set():
+            try:
+                sock, _ = self.srv.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            t = threading.Thread(target=self._serve, args=(sock,), daemon=True,
+                                 name=f"accept-{self.name}")
+            self.threads.append(t)
+            t.start()
+
+    def _serve(self, sock):
+        from crdt_tpu_torch.cluster import hello_accept
+
+        link = self.link(sock)
+        peer, t0 = "?", time.perf_counter()
+        try:
+            peer = hello_accept(link, timeout=30.0)
+            self.inbound.append((peer, self.node.accept(link, peer_id=peer),
+                                 time.perf_counter() - t0))
+        except Exception as e:  # noqa: BLE001 - recorded, and the phase fails on it
+            self.inbound.append((peer, e, time.perf_counter() - t0))
+        finally:
+            link.close()
+
+    def scheduler(self, fleet):
+        import socket
+
+        from crdt_tpu_torch.cluster import GossipScheduler, Membership, hello_dial
+        from crdt_tpu_torch.error import PeerUnavailableError
+
+        roster = Membership()
+        for other in fleet:
+            if other is not self:
+                roster.add(other.name, address=other.srv.getsockname())
+
+        def dial(peer):
+            try:
+                sock = socket.create_connection(peer.address, timeout=10.0)
+            except OSError as e:
+                raise PeerUnavailableError(f"dial {peer.peer_id}: {e}") from e
+            link = self.link(sock)
+            hello_dial(link, self.name)
+            return link
+
+        self.sched = GossipScheduler(self.node, roster, dial, fanout=2,
+                                     session_timeout_s=GOSSIP_JOIN_S, seed=self.i)
+
+    def close(self):
+        self.stop.set()
+        self.listener.join(timeout=GOSSIP_JOIN_S)
+        for t in self.threads:
+            t.join(timeout=GOSSIP_JOIN_S)
+        self.srv.close()
+        if self.listener.is_alive() or any(t.is_alive() for t in self.threads):
+            raise AssertionError(f"{self.name}: a listener or an accepted session hung")
+
+
+class GossipReader:
+    """The phase 13 reader: a thread serving read frames through
+    ``serve_frames`` (overlapped) on the nodes in turn until stopped.
+    ``acks[i]`` is node i's ``(write_vv, written objects, members)`` after
+    its last acknowledged writes, set by the main thread; RYW batches
+    carry that floor and probe up to ``GOSSIP_RYW_ROWS`` of those writes,
+    which must read as members; monotonic batches carry the token of the
+    node's last frame."""
+
+    def __init__(self, members, robj, rmember):
+        import threading
+
+        self.members, self.robj, self.rmember = members, robj, rmember
+        self.acks = [None] * len(members)
+        self.tokens = [None] * len(members)
+        self.stop = threading.Event()
+        self.errors, self.calls = [], []
+        self.batches = self.ryw_checked = 0
+        self.thread = threading.Thread(target=self._run, name="gossip-reader", daemon=True)
+
+    def _request(self, k: int, b: int):
+        from crdt_tpu_torch.serve import ReadRequest
+
+        n = self.robj.size // GOSSIP_READ_B
+        sl = slice((b % n) * GOSSIP_READ_B, (b % n + 1) * GOSSIP_READ_B)
+        obj, member = self.robj[sl].copy(), self.rmember[sl].copy()
+        mode, require, probe = GOSSIP_MODES[b % len(GOSSIP_MODES)], None, 0
+        if mode == "ryw" and self.acks[k] is not None:
+            require, wobj, wmem = self.acks[k]
+            probe = min(GOSSIP_RYW_ROWS, wobj.size)
+            obj[:probe], member[:probe] = wobj[-probe:], wmem[-probe:]
+        elif mode == "ryw":
+            mode = "eventual"  # no write acknowledged on this node yet
+        if mode == "monotonic":
+            require = self.tokens[k] if self.tokens[k] is not None \
+                else self.members[k].node.read_token()
+        return ReadRequest.reads(obj, member=member, mode=mode, require=require), probe
+
+    def _run(self):
+        from crdt_tpu_torch.serve import decode_result_frame, encode_read_request
+
+        call = 0
+        try:
+            while not self.stop.is_set():
+                k = call % len(self.members)
+                reqs = [self._request(k, self.batches + j) for j in range(GOSSIP_FRAMES_PER_CALL)]
+                self.batches += len(reqs)
+                loop = self.members[k].node.serve_loop()
+                out, stats = loop.serve_frames([encode_read_request(r) for r, _ in reqs])
+                self.calls.append(stats)
+                for (req, probe), frame in zip(reqs, out):
+                    if frame is None:
+                        continue
+                    res = decode_result_frame(frame)
+                    if req.mode != "frontier":
+                        self.tokens[k] = res.token
+                    if probe and not (res.val[:probe] == 1).all():
+                        raise AssertionError(
+                            f"n{k}: a read-your-writes read missed "
+                            f"{int((res.val[:probe] != 1).sum())} acknowledged writes")
+                    self.ryw_checked += probe
+                call += 1
+                self.stop.wait(GOSSIP_READ_PAUSE_S)
+        except BaseException as e:  # re-raised in the main thread
+            self.errors.append(e)
+
+
+def gossip_writes(member, wobj, rng, kept):
+    """Mint ``GOSSIP_WRITES // GOSSIP_NODES`` adds on ``member``'s node from
+    the write stream (actor i + 1) and submit them; returns their seconds."""
+    import torch
+
+    from crdt_tpu_torch.oplog import derive_add_ctx
+
+    node, i = member.node, member.i
+    k = GOSSIP_WRITES // GOSSIP_NODES
+    obj = wobj[:k]
+    mem = (GOSSIP_MEMBER0 + rng.randint(0, GOSSIP_MEMBERS, k)).astype(np.int32)
+    torch.cuda.empty_cache()  # the fold's whole-fleet temporaries want contiguous room
+    t0 = time.perf_counter()
+    ops, _ = derive_add_ctx(node.write_clock(), obj, np.full(k, i + 1, np.int32), member=mem)
+    node.submit_ops(ops)
+    ack = node.write_vv()
+    secs = time.perf_counter() - t0
+    kept[i].append(ops)
+    return secs, ack, obj, mem
+
+
+def gossip_round(fleet, r: int) -> dict:
+    """One fleet round: each scheduler's ``run_round`` in turn.  Returns the
+    round's record: wall seconds, each session leg's report (dialed and
+    accepted), each scheduler's health view, the failed legs, and the
+    refusals by a node's busy bound with the failures they caused (a
+    refused dial's other leg fails with a transport error; that is the
+    bound's designed behaviour, counted apart)."""
+    from crdt_tpu_torch.obs import events
+
+    marks = [len(m.inbound) for m in fleet]
+    t0 = time.perf_counter()
+    reports, failed, busy, health = [], [], set(), {}
+    for m in fleet:
+        seen = events.recorder().snapshot()
+        mark = seen[-1]["seq"] if seen else 0
+        rep = m.sched.run_round()
+        health[m.name] = rep.health
+        reports += [(m.name, peer, "dial", x) for peer, x in rep.reports.items()]
+        for e in events.recorder().snapshot("cluster.session"):
+            f = e["fields"]
+            if e["seq"] > mark and f["outcome"] == "failed":
+                failed.append((m.name, f["peer"], "dial", f["error"]))
+    wall = time.perf_counter() - t0
+    for m, mark in zip(fleet, marks):
+        for peer, res, _ in m.inbound[mark:]:
+            if isinstance(res, BaseException):
+                failed.append((peer, m.name, "accept", f"{type(res).__name__}: {res}"))
+            else:
+                reports.append((m.name, peer, "accept", res))
+    for dialer, acceptor, _, err in failed:
+        if "busy with another session" in err:
+            busy.add((dialer, acceptor))
+    refused = [f for f in failed if (f[0], f[1]) in busy]
+    return {"round": r, "wall_s": wall, "reports": reports, "health": health,
+            "failed": [f for f in failed if (f[0], f[1]) not in busy], "busy": refused,
+            "diverged": sum(x[3].diverged for x in reports)}
+
+
+def gossip_checks(fleet, start_host, kept, written, k2, dev, card: str):
+    """Phase 13's plane checks: the rows no write touched equal the starting
+    replica on every node, bit for bit; every node's batch, self-merged,
+    equals the first node's, which equals the merge kernel's join of the
+    starting replica with each node's kept op batches applied by
+    ``OpApplier`` (the three nodes start from one replica).  The join is
+    built after the nodes are dropped (three replicas, the start, the join
+    and an op fold's whole-fleet temporaries do not fit the card at once).
+    Each merge-kernel launch is held against ``merge_reference``.  Closes
+    the fleet."""
+    import torch
+
+    from crdt_tpu_torch import OrswotBatch
+    from crdt_tpu_torch.oplog import OpApplier, OpBatch
+
+    uni = fleet[0].node.universe
+    kept_rows = np.ones(N_TOTAL, bool)
+    kept_rows[np.unique(written)] = False
+    batches = [m.node.batch for m in fleet]
+    for lo in range(0, N_TOTAL, CHUNK):
+        rows = torch.from_numpy(kept_rows[lo:lo + CHUNK]).to(dev)
+        for name in PLANES:
+            ref = start_host[name][lo:lo + CHUNK].to(dev)[rows]
+            for m, batch in zip(fleet, batches):
+                if not torch.equal(getattr(batch, name)[lo:lo + CHUNK][rows], ref):
+                    raise AssertionError(f"{m.name}: {name} changed on a row no write touched")
+    del batches
+    merged = None
+    for m in fleet:
+        batch = m.node.batch
+        own = batch.merge(batch)
+        k2.check("a node's self-merge")
+        if merged is None:
+            merged = own
+        else:
+            same_planes(own, merged, f"{m.name} self-merged against {fleet[0].name} self-merged")
+        del own, batch
+    for m in fleet:
+        m.close()
+    fleet.clear()
+    gc.collect()  # the members' scheduler and dialer refer to each other
+    torch.cuda.empty_cache()
+    start = OrswotBatch(*(start_host[k].to(dev) for k in PLANES))
+    join = None
+    for ops in kept:
+        applied, _ = OpApplier(uni).apply_ops(start, OpBatch.concat(ops))
+        join = applied if join is None else join.merge(applied)
+        k2.check("the oracle's join")
+        del applied
+        torch.cuda.empty_cache()
+    same_planes(merged, join, "the nodes self-merged against the merge kernel's join of the "
+                "starting replica and every node's writes")
+    log(f"  every node self-merged == K2's join of the start and the {len(kept)} nodes' op "
+        f"batches; the {int(kept_rows.sum())} rows no write touched == the start, on every "
+        f"node [{card}]")
+
+
+def gossip_phase(dev, card: str, start):
+    """Phase 13: three ``ClusterNode``s on the card (phase 12's replica P
+    and two copies) gossip by their schedulers over loopback TCP while they
+    take writes and a reader thread serves reads, until the nodes' digests
+    agree and a whole round finds no divergence.  Returns the merge
+    kernel's launches on the phase's path (the sessions' applies and the
+    auditor's self-merges)."""
+    import torch
+
+    from crdt_tpu_torch import CrdtConfig, OrswotBatch, Universe, _build, kernel_observatory
+    from crdt_tpu_torch.serve import ReadRequest, encode_read_request, visible_vv
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(SEED + 13)
+    rep = {"card": card, "objects": N_TOTAL, "shape": [A, M, D], "nodes": GOSSIP_NODES,
+           "fleet": "phase 12's replica P and two copies", "policy": GOSSIP_POLICY,
+           "writes_per_round": GOSSIP_WRITES, "write_rounds": GOSSIP_WRITE_ROUNDS,
+           "members": [GOSSIP_MEMBER0, GOSSIP_MEMBER0 + GOSSIP_MEMBERS - 1],
+           "read_batch": GOSSIP_READ_B, "read_pause_s": GOSSIP_READ_PAUSE_S,
+           "park_timeout_s": GOSSIP_PARK_S}
+    torch.cuda.reset_peak_memory_stats()
+    uni = Universe.identity(CrdtConfig.gpu_default(num_actors=A, member_capacity=M,
+                                                   deferred_capacity=D))
+    robj, rmember, wobj = read_traffic(rng)
+    # the start stays on the host for the checks: n0 holds its planes only
+    # until its first fold replaces them
+    start_host = {k: getattr(start, k).cpu() for k in PLANES}
+    fleet, kept, written, rounds, write_s = [], [[] for _ in range(GOSSIP_NODES)], [], [], 0.0
+    with K2Launches() as k2:
+        try:
+            for i in range(GOSSIP_NODES):
+                batch = start if i == 0 else OrswotBatch(*(getattr(start, k).clone()
+                                                           for k in PLANES))
+                fleet.append(GossipMember(i, batch, uni))
+            del start, batch
+            for m in fleet:
+                m.scheduler(fleet)
+                m.node.serve_loop().park_timeout_s = GOSSIP_PARK_S
+            torch.cuda.synchronize()
+            rep["build_s"] = time.perf_counter() - t_phase
+            reader = GossipReader(fleet, robj, rmember)
+            obs = kernel_observatory()
+            obs.reset()
+            _build.reset_launch_counts()
+            obs.set_enabled(True)
+            t_rounds = time.perf_counter()
+            reader.thread.start()
+            try:
+                for r in range(1, GOSSIP_MAX_ROUNDS + 1):
+                    for m in fleet[:GOSSIP_NODES if r <= GOSSIP_WRITE_ROUNDS else 0]:
+                        k = GOSSIP_WRITES // GOSSIP_NODES
+                        off = ((r - 1) * GOSSIP_NODES + m.i) * k
+                        secs, ack, obj, mem = gossip_writes(m, wobj[off:off + k], rng, kept)
+                        write_s += secs
+                        written.append(obj)
+                        prev = reader.acks[m.i]
+                        reader.acks[m.i] = (ack, obj, mem) if prev is None else (
+                            ack, np.concatenate([prev[1], obj]), np.concatenate([prev[2], mem]))
+                    x = gossip_round(fleet, r)
+                    # the digests decide only a round that can end the phase
+                    x["digests_equal"] = None
+                    if x["diverged"] == 0 and r > GOSSIP_WRITE_ROUNDS:
+                        digests = [m.node.digest() for m in fleet]
+                        x["digests_equal"] = all(np.array_equal(d, digests[0])
+                                                 for d in digests[1:])
+                    x["allocated_gb"] = torch.cuda.memory_allocated() / 1e9
+                    rounds.append(x)
+                    legs = [(a, b, c, y.diverged, round(y.profile.wall_ns / 1e9, 3),
+                             round(y.profile.kernel_ns / 1e9, 3),
+                             round(y.profile.network_ns / 1e9, 3))
+                            for a, b, c, y in x["reports"]]
+                    equal = "not compared" if x["digests_equal"] is None else x["digests_equal"]
+                    log(f"  round {r}: {x['wall_s']:.3f} s, {len(x['reports'])} session legs ok, "
+                        f"{len(x['failed'])} failed, {len(x['busy'])} refused by a busy bound; "
+                        f"diverged rows found {x['diverged']}; digests equal: {equal}; "
+                        f"{x['allocated_gb']:.2f} GB allocated; legs (node, peer, leg, diverged, "
+                        f"wall s, kernel s, network s): {legs} [{card}]")
+                    if x["failed"]:
+                        raise AssertionError(f"round {r}: failed session legs {x['failed']}")
+                    if x["digests_equal"]:
+                        break
+            finally:
+                reader.stop.set()
+                reader.thread.join(timeout=GOSSIP_JOIN_S)
+            torch.cuda.synchronize()
+            rounds_s = time.perf_counter() - t_rounds
+            obs.set_enabled(False)
+            launches = _build.launch_counts()["orswot_merge"]
+            table = obs.table()["orswot_merge"]
+            if reader.thread.is_alive():
+                raise AssertionError("the reader thread hung")
+            if reader.errors:
+                raise reader.errors[0]
+            if not rounds[-1]["digests_equal"]:
+                raise AssertionError(f"no convergence in {len(rounds)} rounds")
+            if launches == 0 or len(k2.seen) != launches:
+                raise AssertionError(f"the merge kernel launched {launches} times in the phase, "
+                                     f"{len(k2.seen)} captured")
+            k2.check("phase 13's session applies and audits")
+            rep["k2_launches_checked"] = len(k2.checked)
+
+            counts = [m.node.serve_loop().counts() for m in fleet]
+            modes = ("eventual", "ryw", "monotonic", "frontier")
+            rejected = {md: sum(c["reject"].get(md, 0) for c in counts) for md in modes}
+            parked = {md: sum(c["park"].get(md, 0) for c in counts) for md in modes}
+            if rejected["ryw"] or rejected["monotonic"]:
+                raise AssertionError(f"read-your-writes or monotonic reads rejected: {rejected}")
+            if not reader.ryw_checked:
+                raise AssertionError("no read-your-writes read probed an acknowledged write")
+            req = encode_read_request(ReadRequest.reads(robj[:GOSSIP_READ_B],
+                                                        member=rmember[:GOSSIP_READ_B]))
+            frames = [m.node.serve_loop().serve_frames([req])[0][0] for m in fleet]
+            if any(f is None or f != frames[0] for f in frames):
+                raise AssertionError("one eventual request: the nodes' result frames differ")
+            log(f"  after convergence one eventual request frame gives {len(frames[0])}-byte "
+                f"result frames, byte-equal on the {len(fleet)} nodes")
+            # visible_vv: no memo, so every serve and every parked poll pays it
+            vv_ms = [timed_ms(lambda: visible_vv(fleet[0].node.batch))[1:] for _ in range(10)]
+            rep["visible_vv_ms"] = {"device": sum(v[0] for v in vv_ms) / 10,
+                                    "wall": sum(v[1] for v in vv_ms) / 10,
+                                    "bound": N_TOTAL * A * 4 / HBM_BYTES_PER_S * 1e3}
+            log(f"  visible_vv on one node: {rep['visible_vv_ms']['device']:.4f} ms on the device, "
+                f"{rep['visible_vv_ms']['wall']:.4f} ms wall (mean of 10; bytes bound "
+                f"{rep['visible_vv_ms']['bound']:.4f} ms) [{card}]")
+            rep["scheduler_counts"] = {m.name: m.sched.counts() for m in fleet}
+            gossip_checks(fleet, start_host, kept, np.concatenate(written), k2, dev, card)
+        finally:
+            for m in fleet:
+                m.close()
+
+    calls = reader.calls
+    rows = sum(c["rows"] for c in calls)
+    e2e = sum(c["e2e_s"] for c in calls)
+    stage = {k: sum(c["stage_s"][k] for c in calls) for k in ("decode", "serve", "encode")}
+    sessions = [{"round": x["round"], "node": node, "peer": peer, "leg": leg,
+                 "diverged": r.diverged, "tree": r.tree_mode, "wall_s": r.profile.wall_ns / 1e9,
+                 "split_s": {c: getattr(r.profile, f"{c}_ns") / 1e9 for c in
+                             ("serialize", "network", "kernel", "other", "unaccounted")},
+                 "bytes_sent": r.bytes_sent}
+                for x in rounds for node, peer, leg, r in x["reports"]]
+    n_writes = int(sum(o.size for o in written))
+    rep.update(
+        rounds=len(rounds), rounds_s=rounds_s, round_wall_s=[x["wall_s"] for x in rounds],
+        sessions_ok=[len(x["reports"]) for x in rounds],
+        sessions_failed=[len(x["failed"]) for x in rounds],
+        busy_refused=[len(x["busy"]) for x in rounds],
+        busy_refusals=[f for x in rounds for f in x["busy"]],
+        diverged_per_round=[x["diverged"] for x in rounds],
+        health=[x["health"] for x in rounds], sessions=sessions,
+        k2_launches=launches, k2_device_ms=table["device_ms_total"], k2_timed=table["timed"],
+        writes=n_writes, write_s=write_s, writes_per_s=n_writes / write_s,
+        reads=rows, read_calls=len(calls), read_batches=reader.batches,
+        reads_per_s=rows / e2e if e2e else None, read_e2e_s=e2e, read_stage_s=stage,
+        ryw_probed=reader.ryw_checked, parked=parked, rejected=rejected,
+        park_wait_s=sum(c["park_wait_s"] for c in counts),
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    rep["phase_s"] = time.perf_counter() - t_phase
+    walls = [round(s["wall_s"], 3) for s in sessions if s["diverged"]]
+    log(f"  {len(rounds)} rounds in {rounds_s:.3f} s ({[round(w, 3) for w in rep['round_wall_s']]}"
+        f" s); session legs ok per round {rep['sessions_ok']}, failed {rep['sessions_failed']}, "
+        f"refused by a busy bound {rep['busy_refused']}; diverged legs' walls {walls} s [{card}]")
+    log(f"  writes: {n_writes} acknowledged at {rep['writes_per_s']:.0f}/s (mint + submit); "
+        f"reads: {rows} rows in {len(calls)} serve_frames calls at {rep['reads_per_s'] or 0:.0f} "
+        f"rows/s end to end, stage_s { {k: round(v, 3) for k, v in stage.items()} }; parked "
+        f"{parked}, rejected {rejected}; {reader.ryw_checked} RYW probes of acknowledged writes "
+        f"read as members [{card}]")
+    log(f"  the merge kernel {launches} launches, {table['device_ms_total']:.3f} ms on the device "
+        f"(observatory), each bit-equal to merge_reference; peak device memory "
+        f"{rep['peak_memory_gb']:.2f} GB; phase 13 {rep['phase_s']:.1f} s [{card}]")
+    print("gossip " + json.dumps(rep, default=lambda x: x.tolist() if hasattr(x, "tolist")
+                                 else str(x)), flush=True)
     return launches
 
 
@@ -3070,8 +3590,14 @@ def main() -> int:
 
     log("== phase 12: cluster transport (two sessions over loopback TCP through the ARQ, "
         "faults injected)")
-    cluster_k2 = cluster_phase(dev, card, fleet)
+    cluster_k2, fleet = cluster_phase(dev, card, fleet)
+    torch.cuda.empty_cache()
+
+    log("== phase 13: a gossip fleet (three cluster nodes over loopback TCP taking writes and "
+        "serving reads)")
+    gossip_k2 = gossip_phase(dev, card, fleet)
     del fleet
+    torch.cuda.empty_cache()
 
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -3082,6 +3608,7 @@ def main() -> int:
          "sync_launches": sync_k2 if name == "orswot_merge" else 0,
          "read_launches": read_k2 if name == "orswot_merge" else 0,
          "cluster_launches": cluster_k2 if name == "orswot_merge" else 0,
+         "gossip_launches": gossip_k2 if name == "orswot_merge" else 0,
          "max_abs_err": worst[name], "ms": timed[name]["ms"],
          "plain_ms": timed[name]["plain_ms"], "bound_ms": timed[name]["bound_ms"],
          "bound_by": timed[name]["bound_by"], "library_ms": None}

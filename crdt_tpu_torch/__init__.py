@@ -14,12 +14,14 @@ op frames folded into the planes on the card; delta anti-entropy
 (``sync/``: digests, digest trees, delta frames, :class:`OrswotDeltaApplier`
 merging the diverged rows through the merge kernel, and :class:`SyncSession`
 and :func:`sync_pair`, which run the protocol between two replicas), the
-transports a session runs over and the peer roster (``cluster/``:
-:class:`TcpTransport`, the ARQ :class:`ResilientTransport`, seeded fault
-injection, :class:`Membership`) and causal GC
+transports a session runs over, the peer roster and the gossiping node
+(``cluster/``: :class:`TcpTransport`, the ARQ :class:`ResilientTransport`,
+seeded fault injection, :class:`Membership`, :class:`ClusterNode` and
+:class:`GossipScheduler`) and causal GC
 (``gc/``: the fleet watermark, settle, repack, truncate, :class:`GcEngine`);
 the read front-end (``serve/``: :func:`gather` and :class:`QueryEngine`,
-``ReadCtx`` rows for every kind, consistency admission) and its
+``ReadCtx`` rows for every kind, consistency admission, the read frames
+and the :class:`ServeLoop` a node answers them through) and its
 observatories (``obs/``: :class:`StabilityTracker`, :class:`HeatTracker`,
 :class:`CapacityTracker`, :func:`kernel_observatory`).
 The scalar engine (``scalar/``) and the serde codec (``utils/serde.py``)
@@ -53,6 +55,12 @@ Quick start::
     a, b = SyncSession(replica_a, uni, peer="b"), SyncSession(replica_b, uni, peer="a")
     report_a, report_b = sync_pair(a, b)               # a.batch == b.batch
 
+    # a node that takes writes and serves session-consistent reads
+    node = ClusterNode("n0", replica, uni, digest_tree=True)
+    node.submit_writes(obj, member, actor=1)
+    frame = node.serve_reads(ReadRequest.reads(obj, member=member, mode="ryw",
+                                               require=node.write_vv()))
+
     # or each side in its own process, over TCP with the ARQ
     report = SyncSession(replica, uni, peer="b").sync(ResilientTransport(TcpTransport(sock)))
 """
@@ -61,12 +69,13 @@ from .batch import (
     GCounterBatch, GSetBatch, LWWRegBatch, MapBatch, MapKernel, MVRegBatch, MVRegKernel,
     OrswotBatch, OrswotKernel, PipelinedOpLoop, PipelinedWireLoop, PNCounterBatch, VClockBatch,
 )
-from .cluster import ResilientTransport, TcpTransport
+from .cluster import ClusterNode, GossipScheduler, ResilientTransport, TcpTransport
 from .config import CrdtConfig, MERGE_IMPLS
 from .device import resolve_device
 from .error import (
     CapacityOverflowError,
     ConflictingMarker,
+    ConsistencyUnavailableError,
     CrdtError,
     DeviceUnavailableError,
     KernelError,
@@ -82,7 +91,7 @@ from .error import (
 from .gc import FleetWatermark, GcEngine, GcPolicy, GcReport, WatermarkReport
 from .obs import CapacityTracker, HeatTracker, StabilityTracker, kernel_observatory
 from .parallel import JoinError, JoinExecutor, JoinStats, join_all
-from .serve import QueryEngine, ReadRequest, ResultFrame, gather
+from .serve import QueryEngine, ReadRequest, ResultFrame, ServeLoop, gather
 from .sync import (
     DigestTree, OrswotDeltaApplier, SyncReport, SyncSession, build_tree, digest_of,
     queue_transport, sync_pair, version_vector,
@@ -92,7 +101,9 @@ from .utils.interning import IdentityRegistry, Registry, Universe
 __all__ = [
     "CapacityOverflowError",
     "CapacityTracker",
+    "ClusterNode",
     "ConflictingMarker",
+    "ConsistencyUnavailableError",
     "CrdtConfig",
     "CrdtError",
     "DeviceUnavailableError",
@@ -102,6 +113,7 @@ __all__ = [
     "GcEngine",
     "GcPolicy",
     "GcReport",
+    "GossipScheduler",
     "HeatTracker",
     "GSetBatch",
     "IdentityRegistry",
@@ -128,6 +140,7 @@ __all__ = [
     "Registry",
     "ResilientTransport",
     "ResultFrame",
+    "ServeLoop",
     "StabilityTracker",
     "SyncProtocolError",
     "SyncReport",

@@ -1,14 +1,19 @@
-"""The cluster layer's transports and roster (the port of the JAX
-package's ``cluster`` package, less the gossip scheduler and the crash
-injectors): frame transports and the ARQ that hardens them
-(:mod:`~crdt_tpu_torch.cluster.transport`), seeded fault injection
-(:mod:`~crdt_tpu_torch.cluster.faults`) and peer health
-(:mod:`~crdt_tpu_torch.cluster.membership`).  Failures speak the
-:class:`~crdt_tpu_torch.error.TransportError` taxonomy; counts are plain
-fields."""
+"""The cluster layer (the port of the JAX package's ``cluster`` package,
+less the torn-write injector that waits for durability): frame
+transports and the ARQ that hardens them
+(:mod:`~crdt_tpu_torch.cluster.transport`), seeded fault and crash
+injection (:mod:`~crdt_tpu_torch.cluster.faults`), peer health
+(:mod:`~crdt_tpu_torch.cluster.membership`), and the cluster node with
+its gossip scheduler (:mod:`~crdt_tpu_torch.cluster.gossip`).  Failures
+speak the :class:`~crdt_tpu_torch.error.TransportError` taxonomy; counts
+are plain fields."""
 
 from .faults import (  # noqa: F401
-    FaultPlan, FaultyTransport, FlappingDialer, LatencyTransport, latency_pair,
+    CrashPlan, CrashState, FaultPlan, FaultyTransport, FlappingDialer, InjectedCrash,
+    LatencyTransport, arm_crashes, crash_point, disarm_crashes, latency_pair,
+)
+from .gossip import (  # noqa: F401
+    ClusterNode, GossipScheduler, RoundReport, hello_accept, hello_dial,
 )
 from .membership import ALIVE, DEAD, SUSPECT, Membership, PeerInfo  # noqa: F401
 from .transport import (  # noqa: F401
@@ -17,7 +22,9 @@ from .transport import (  # noqa: F401
 )
 
 __all__ = [
-    "ALIVE", "DEAD", "SUSPECT", "FaultPlan", "FaultyTransport", "FlappingDialer",
-    "LatencyTransport", "Membership", "PeerInfo", "QueuePairTransport", "ResilientTransport",
-    "RetryPolicy", "TcpTransport", "Transport", "latency_pair", "linger", "queue_pair",
+    "ALIVE", "DEAD", "SUSPECT", "ClusterNode", "CrashPlan", "CrashState", "FaultPlan",
+    "FaultyTransport", "FlappingDialer", "GossipScheduler", "InjectedCrash", "LatencyTransport",
+    "Membership", "PeerInfo", "QueuePairTransport", "ResilientTransport", "RetryPolicy",
+    "RoundReport", "TcpTransport", "Transport", "arm_crashes", "crash_point", "disarm_crashes",
+    "hello_accept", "hello_dial", "latency_pair", "linger", "queue_pair",
 ]

@@ -16,6 +16,11 @@ disconnects back off as transient errors.  :class:`LatencyTransport`
 gives a link a one-way propagation delay (:func:`latency_pair` for both
 ends), and :class:`FlappingDialer` refuses a scheduled subset of dials.
 Each keeps its tallies as plain counts (``injected``, ``refused``).
+
+The crash half stands in for ``kill -9``: an armed :class:`CrashPlan`
+makes the k-th hit of a named :func:`crash_point` raise
+:class:`InjectedCrash`, which the cluster node's op drain and session
+start call.
 """
 
 from __future__ import annotations
@@ -23,8 +28,9 @@ from __future__ import annotations
 import dataclasses
 import random
 import struct
+import threading
 import time
-from typing import Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
 from ..error import PeerUnavailableError, TransportClosedError
 from .transport import Transport, queue_pair
@@ -188,3 +194,77 @@ class FlappingDialer:
             self.refused += 1
             raise PeerUnavailableError(f"injected dial refusal (attempt {self._calls})")
         return self._dial(peer)
+
+
+# -- crash injection ------------------------------------------------------------------
+
+
+class InjectedCrash(BaseException):
+    """An in-process stand-in for ``kill -9``.  A ``BaseException``, so
+    the ``except Exception`` paths that would mask a crash cannot swallow
+    it: it unwinds to the harness, which abandons the node."""
+
+
+@dataclasses.dataclass(frozen=True)
+class CrashPlan:
+    """``{point_name: k}``: the k-th (1-based) hit of each named point
+    crashes, once; points not named never fire."""
+
+    at: Mapping[str, int]
+
+    def __post_init__(self):
+        for name, k in self.at.items():
+            if k < 1:
+                raise ValueError(f"CrashPlan point {name!r} schedules hit {k} < 1")
+
+
+class CrashState:
+    """Per-point hit counts of one armed :class:`CrashPlan`, and the
+    points that fired (each fires once)."""
+
+    def __init__(self, plan: CrashPlan):
+        self.plan = plan
+        self._lock = threading.Lock()
+        self._hits: Dict[str, int] = {}
+        self._fired: List[str] = []
+
+    @property
+    def fired(self) -> List[str]:
+        with self._lock:
+            return list(self._fired)
+
+    def hit(self, name: str) -> bool:
+        """Count one hit of ``name``; True when this hit is the one
+        scheduled to crash and the point has not fired before."""
+        scheduled = self.plan.at.get(name)
+        with self._lock:
+            self._hits[name] = self._hits.get(name, 0) + 1
+            if scheduled is None or name in self._fired or self._hits[name] != scheduled:
+                return False
+            self._fired.append(name)
+            return True
+
+
+_crash_state: Optional[CrashState] = None
+
+
+def arm_crashes(plan: CrashPlan) -> CrashState:
+    """Arm ``plan`` process-wide and return its state; pair it with
+    :func:`disarm_crashes` in a ``finally``."""
+    global _crash_state
+    state = CrashState(plan)
+    _crash_state = state
+    return state
+
+
+def disarm_crashes() -> None:
+    global _crash_state
+    _crash_state = None
+
+
+def crash_point(name: str) -> None:
+    """A ``kill -9``-shaped moment: raises :class:`InjectedCrash` when the
+    armed plan schedules this hit, and does nothing otherwise."""
+    state = _crash_state
+    if state is not None and state.hit(name):
+        raise InjectedCrash(f"injected kill -9 at crash point {name!r}")

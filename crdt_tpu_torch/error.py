@@ -4,7 +4,8 @@ Own copies of the JAX package's ``CrdtError``, ``ConflictingMarker``,
 ``CapacityOverflowError``, ``WireFormatError``, ``OpLogOverflowError``,
 ``SyncProtocolError``, ``TransportError`` (with its four subclasses
 ``SyncTimeoutError``, ``PeerUnavailableError``, ``TransportClosedError``
-and ``TransportFrameError``) and ``raise_for_overflow`` (the port
+and ``TransportFrameError``), ``ConsistencyUnavailableError`` and
+``raise_for_overflow`` (the port
 imports nothing of that package), plus the errors that only a
 GPU build has: a missing card, a kernel or the host codec that does not
 build, a launch that the CUDA runtime refuses.
@@ -91,6 +92,20 @@ class TransportClosedError(TransportError):
 class TransportFrameError(TransportError):
     """An ARQ envelope was malformed: truncated header, length or CRC
     mismatch, unknown kind.  The receiver treats it as loss."""
+
+
+class ConsistencyUnavailableError(CrdtError):
+    """A session-consistency admission could not be satisfied: a
+    read-your-writes or monotonic read parked past its deadline without
+    the node's visible clock covering its floor, or a frontier read
+    reached a node with no stability frontier yet
+    (:mod:`crdt_tpu_torch.serve.consistency`).  ``mode`` and ``reason``
+    say which, so a client can retry or downgrade the mode."""
+
+    def __init__(self, message: str, *, mode: str = "", reason: str = ""):
+        super().__init__(message)
+        self.mode = mode
+        self.reason = reason
 
 
 class DeviceUnavailableError(CrdtError, RuntimeError):

@@ -1,8 +1,9 @@
 """Per-peer convergence state (the port of the JAX package's
 ``ConvergenceTracker``: ``register_peer``, ``observe_divergence``,
 ``observe_session``, ``observe_tree``, the version-vector cache the
-fleet watermark reads, and ``snapshot``).  The JAX tracker mirrors each
-field into a registry gauge; here they are plain fields of
+fleet watermark reads, ``snapshot``, ``refresh`` and ``urgency``, the
+gossip scheduler's ranking key).  The JAX tracker mirrors each field into
+a registry gauge; here they are plain fields of
 :meth:`ConvergenceTracker.snapshot`."""
 
 from __future__ import annotations
@@ -125,6 +126,29 @@ class ConvergenceTracker:
                                 else now - st.last_converged_ts),
                 "delta_ratio_history": list(st.delta_ratios)}
                 for peer, st in self._peers.items()}
+
+    def refresh(self) -> Dict[str, float]:
+        """``{peer: seconds since its last converged session}`` for every
+        peer that has converged, computed now (the JAX tracker publishes
+        these as its staleness gauges before a scrape)."""
+        now = time.monotonic()
+        with self._lock:
+            return {peer: now - st.last_converged_ts for peer, st in self._peers.items()
+                    if st.last_converged_ts is not None}
+
+    def urgency(self, peer: str) -> tuple:
+        """How badly ``peer`` needs a sync, as a descending sort key:
+        ``(staleness seconds, last diverged fraction, diverged subtree
+        count)``, all +inf for a peer never converged with, so never-synced
+        peers rank first, then the one ignored longest, then the one that
+        differed most, then the costliest descent."""
+        now = time.monotonic()
+        with self._lock:
+            st = self._peers.get(peer)
+            if st is None or st.last_converged_ts is None:
+                return (float("inf"), float("inf"), float("inf"))
+            frac = st.divergence / st.objects if st.objects else 0.0
+            return (now - st.last_converged_ts, frac, st.diverged_subtrees)
 
     def reset(self) -> None:
         with self._lock:

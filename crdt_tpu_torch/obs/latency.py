@@ -16,7 +16,8 @@ and how stale a peer's writes are (the port of the JAX package's
   observer measures each entry once its clock plane witnesses the dot.
   Monotonic stamps compare only within one process, so entries from
   another clock domain are counted and dropped.  Percentiles are plain
-  fields of :meth:`LagTracker.snapshot`.
+  fields of :meth:`LagTracker.snapshot`; :meth:`LagTracker.observe_round`
+  keeps the convergence SLO over a window of gossip rounds.
 """
 
 from __future__ import annotations
@@ -33,6 +34,10 @@ STAMPS_PER_ACTOR = 8
 MAX_ACTORS = 512
 #: measured write-to-visible samples retained per peer
 LAG_WINDOW = 512
+#: gossip-round outcomes the SLO window retains
+SLO_WINDOW = 128
+#: a round meets the convergence SLO when it converged within this budget
+SLO_BUDGET_S = 1.0
 
 
 class SessionProfile:
@@ -180,17 +185,19 @@ class LagTracker:
     of one replica.  ``proc_tag`` names this process's monotonic clock
     domain (the flight recorder's process tag by default)."""
 
-    def __init__(self, *, proc_tag: Optional[str] = None, per_actor: int = STAMPS_PER_ACTOR,
-                 max_actors: int = MAX_ACTORS):
+    def __init__(self, *, proc_tag: Optional[str] = None, slo_budget_s: float = SLO_BUDGET_S,
+                 per_actor: int = STAMPS_PER_ACTOR, max_actors: int = MAX_ACTORS):
         from . import events
 
         self.proc_tag = events._PROC_TAG if proc_tag is None else proc_tag
+        self.slo_budget_s = float(slo_budget_s)
         self.per_actor = int(per_actor)
         self.max_actors = int(max_actors)
         self._lock = threading.Lock()
         self._stamps: Dict[int, deque] = {}
         self._peers: Dict[str, _PeerLag] = {}
         self._foreign_dropped = 0
+        self._slo: deque = deque(maxlen=SLO_WINDOW)
 
     # -- origin side -----------------------------------------------------------
 
@@ -282,11 +289,25 @@ class LagTracker:
                         del st.pending[actor]
         return measured
 
+    def observe_round(self, converged: bool, wall_s: float) -> float:
+        """Record one gossip round's outcome; returns the share of the
+        recent window of rounds that converged within ``slo_budget_s``."""
+        ok = bool(converged) and float(wall_s) <= self.slo_budget_s
+        with self._lock:
+            self._slo.append(ok)
+            return sum(self._slo) / len(self._slo)
+
+    def refresh(self) -> dict:
+        """The per-peer lag view, computed now (the JAX tracker publishes
+        it as gauges): :meth:`snapshot`'s ``peers``."""
+        return self.snapshot()["peers"]
+
     def snapshot(self) -> dict:
         """Per peer: retained samples, their p50 and p99 (seconds), the
         entries still outstanding and the age of the oldest one
-        (``current_s``); the actors stamped and the sidecars dropped as
-        another clock domain's."""
+        (``current_s``); the actors stamped, the sidecars dropped as
+        another clock domain's, and the SLO window's length and share of
+        rounds that met the budget (None before a round)."""
         now = time.monotonic_ns()
         with self._lock:
             peers = {}
@@ -299,7 +320,9 @@ class LagTracker:
                     "outstanding": sum(len(v) for v in st.pending.values()),
                     "current_s": 0.0 if oldest is None else max(0, now - oldest) / 1e9}
             return {"peers": peers, "stamped_actors": len(self._stamps),
-                    "foreign_sidecars_dropped": self._foreign_dropped}
+                    "foreign_sidecars_dropped": self._foreign_dropped,
+                    "slo_window": len(self._slo),
+                    "slo_converged_frac": sum(self._slo) / len(self._slo) if self._slo else None}
 
 
 _DEFAULT: Optional[LagTracker] = None

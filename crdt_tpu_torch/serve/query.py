@@ -48,6 +48,9 @@ KIND_NAMES = {
     K_LWW: "lww", K_MVREG: "mvreg", K_MAP: "map",
 }
 
+#: every kind a read frame may name
+READ_KINDS = tuple(sorted(KIND_NAMES))
+
 #: ``member`` column sentinel: a whole-object read (ORSWOT ``value()``,
 #: map ``len()``)
 NO_MEMBER = -1
@@ -55,6 +58,7 @@ NO_MEMBER = -1
 #: per-row result statuses
 ST_OK = 0
 ST_NOT_STABLE = 1
+STATUSES = (ST_OK, ST_NOT_STABLE)
 
 _COUNTS_LOCK = threading.Lock()
 _COUNTS = {"reads": 0, "batches": 0}

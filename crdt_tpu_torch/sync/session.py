@@ -199,8 +199,10 @@ class SyncSession:
         self.heat = heat
         self._peer_fleet_obs = self._peer_oplog = False
         self._peer_digest_tree = self._peer_lag = False
+        # a user digest only: a bound method of self stored on self would make
+        # a reference cycle that keeps the session's fleet alive until the
+        # cyclic collector runs
         self._user_digest_fn = digest_fn
-        self._digest_fn = digest_fn or self._canonical_digest
         self._applier = OrswotDeltaApplier(universe)
         self._transport = None
         self._streaming = False
@@ -291,7 +293,7 @@ class SyncSession:
             digest_tree=self.digest_tree, lag=self.lag_tracker is not None, window=advertised,
             ver=self.speaks_version), report, "hello")
         if not self.full_state and not self.digest_tree:
-            mine, frame = self._digest_frame(self._digest_fn)
+            mine, frame = self._digest_frame(self._user_digest_fn or self._canonical_digest)
             self._send(send, frame, report, "digest")
             self._eager_digest = mine
             _tally("digest_eager")
@@ -754,7 +756,8 @@ class SyncSession:
                 tree_phase = False
         if diverged is None:
             self._event("sync.phase", phase="digest_exchange")
-            mine, theirs = self._exchange_digests(send, recv, report, self._digest_fn)
+            mine, theirs = self._exchange_digests(send, recv, report,
+                                                  self._user_digest_fn or self._canonical_digest)
             diverged = diverged_indices(mine, theirs)
         report.diverged = int(diverged.size)
         obs_convergence.tracker().observe_divergence(self.peer, report.diverged,

@@ -935,3 +935,75 @@ def test_session_over_tcp_on_the_card_equals_the_cpu(dev, monkeypatch):
         sa, sb, (m_cap, d_cap) = args[:5], args[5:10], args[10:12]
         _equal(out, tile.merge_reference(*sa, *sb, m_cap, d_cap))
     assert sum(e.counts()["retransmits"] + e.counts()["corrupt"] for e in got[4]) > 0
+
+
+def _gossip_run(p, q, uni):
+    """Two ``ClusterNode``s (digest tree on) over queue links, each with a
+    ``GossipScheduler``; each node takes writes, then rounds run until
+    their digests agree; then one batch of read frames per mode.  Returns
+    both batches, the result frames, the rounds and the reports."""
+    import threading
+
+    from crdt_tpu_torch.cluster import ClusterNode, GossipScheduler, Membership, queue_pair
+    from crdt_tpu_torch.obs import convergence
+    from crdt_tpu_torch.serve import ReadRequest, encode_read_request
+
+    nodes = [ClusterNode(name, b, uni, digest_tree=True) for name, b in (("a", p), ("b", q))]
+
+    def dialer(i):
+        def dial(peer):
+            ta, tb = queue_pair(default_timeout=60.0)
+            t = threading.Thread(target=nodes[1 - i].accept, args=(tb, nodes[i].node_id),
+                                 daemon=True)
+            t.start()
+            return ta
+        return dial
+
+    scheds = []
+    for i, node in enumerate(nodes):
+        roster = Membership(tracker=convergence.ConvergenceTracker())
+        roster.add(nodes[1 - i].node_id)
+        scheds.append(GossipScheduler(node, roster, dialer(i), fanout=1, seed=i,
+                                      tracker=convergence.ConvergenceTracker()))
+    rng = np.random.RandomState(71)
+    n = p.clock.shape[0]
+    for i, node in enumerate(nodes):
+        node.submit_writes(rng.randint(0, n, 512), rng.randint(200, 216, 512), actor=i + 3)
+    reports = []
+    for rounds in range(1, 5):
+        for s in scheds:
+            rep = s.run_round()
+            assert not rep.failed, rep.failed
+            reports += list(rep.reports.values())
+        if np.array_equal(nodes[0].digest(), nodes[1].digest()):
+            break
+    obj = rng.randint(0, n, 256)
+    member = np.where(rng.rand(256) < 0.25, -1, rng.randint(200, 216, 256)).astype(np.int32)
+    frames = []
+    for node in nodes:
+        reqs = [ReadRequest.reads(obj, member=member),
+                ReadRequest.reads(obj, member=member, mode="ryw", require=node.write_vv()),
+                ReadRequest.reads(obj, member=member, mode="monotonic",
+                                  require=node.read_token())]
+        out, stats = node.serve_loop().serve_frames([encode_read_request(r) for r in reqs])
+        assert stats["rejected"] == 0
+        frames.append(out)
+    return [node.batch for node in nodes], frames, rounds, reports
+
+
+def test_gossip_on_the_card_equals_the_cpu(dev):
+    """Two cluster nodes on the card (N=4,096, A=64, M=16, D=2) take writes
+    and gossip to equal digests; their planes and served read frames equal
+    the same run's on the CPU, and the sessions launch the merge kernel."""
+    uni, ((p, _), (q, _)) = _sync_pair(dev, n=4096, a=64, m=16, d=2)
+    want = _gossip_run(p, q, uni)
+    _build.reset_launch_counts()
+    got = _gossip_run(_on(p, dev), _on(q, dev), uni)
+    assert _build.launch_counts()["orswot_merge"] >= 2
+    assert got[2] == want[2] <= 2
+    for g, w in zip(got[0], want[0]):
+        for f in ("clock", "ids", "dots", "d_ids", "d_clocks"):
+            assert getattr(g, f).device.type == "cuda"
+            assert torch.equal(getattr(g, f).cpu(), getattr(w, f)), f
+    assert got[1] == want[1]
+    assert all(r.converged and r.tree_mode for r in got[3])
