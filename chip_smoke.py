@@ -65,7 +65,8 @@ Phases, in order; any failure ends the run with a nonzero exit:
    events, beside the bytes bound), the fold held against the same
    merges on the CPU (MVReg: its first 32,768 objects) and, on 512
    sampled objects (MVReg 256), against the scalar engine; a wire round
-   (``to_wire`` of each replica, ``from_wire`` → fold → ``to_wire``,
+   on at most 62,500 objects of each (``to_wire`` of each replica,
+   ``from_wire`` → fold → ``to_wire``,
    byte-equal to ``to_wire`` of the device fold, every blob through the
    host codec, a truncated blob raising
    ``WireFormatError``); then 16 op frames of 65,536 ``inc``/``dec``/``set``
@@ -190,9 +191,44 @@ Phases, in order; any failure ends the run with a nonzero exit:
    time, writes and reads per second with the serve stages, parks and
    rejections per mode, peak memory.
 
+14. durability — two ``ClusterNode``s on the card, n0 on phase 12's
+   replica P and n1 on a copy, phase 13's listeners and dialers with a
+   ``GossipScheduler(fanout=1)`` each; n1 has ``Durability(<dir>,
+   interval_rounds=1, retain=2, fsync=True)`` in ``build/`` of the
+   checkout (the phase fails, printing both, when the filesystem cannot
+   hold one generation).  Each node takes 5,461 writes (phase 13's stream,
+   members 200-203), n1's WAL-appended before the fold; one round, whose
+   end on n1 writes generation 1; n1 takes 5,461 more writes, then dies
+   in a further ``submit_ops`` at the crash point ``oplog.fold.n1``
+   (after its WAL append, before the fold); the kill stops its scheduler,
+   closes its listener and drops every reference, and the device memory
+   allocated must fall by the replica's 6.17 GB with no cyclic
+   collection; n0 takes 5,461 writes; ``recover(<dir>, device="cuda")``
+   restores and replays; n1 is rebuilt with the recovered applier, the
+   restored stability frontier and a ``Durability`` whose cadence writes
+   no second snapshot; rounds run until the digests agree and a round
+   finds nothing.  Checks: the restored generation's digest vector equal
+   to n1's at its checkpoint, every WAL'd op replayed (the killed batch
+   too), every write n1 acknowledged read back as a member through
+   ``serve.gather`` before the rejoin and every write of either node on
+   both after it, no rejoin leg shipping full state, the merge kernel
+   launched by the rejoin and each launch against ``merge_reference``;
+   the checkpoint bytes of a pinned batch are compared with the JAX
+   package's (a reported field).  The durable directory is removed at
+   the end.  One ``durable`` JSON line: the snapshot's bytes and the
+   checkpoint's split (drain, digest, ``to_numpy`` and D2H, npz, CRC,
+   write and fsync, rename and directory fsync, WAL roll and truncate),
+   the WAL's frames, bytes and append ms (a probe of 128 fsync'd frames:
+   p50, p99), acknowledged writes/s per batch on n1 (WAL'd) and n0, the
+   restore's split (read, CRC, decode, H2D, root verify, replay) and
+   report, the rejoin's rounds, leg walls, rows diverged and delta bytes
+   against the full state's, K2 launches, peak device memory and host
+   RSS, free disk and host memory before the phase, and its wall time.
+
 Launch counts are reset just before phase 4 and read just after, and
 again around phases 5, 6, 6b, 7, 8, 9 and 11, around phase 12's sessions,
-around phase 13's rounds and reads, and around each step of phase 10's
+around phase 13's rounds and reads, around phase 14's rounds, writes,
+kill and rejoin, and around each step of phase 10's
 main path (the replicas' plunger, the
 session step, the GC pass and the truncate; the checks between them are
 not counted).  The last lines are the kernel table (JSON), the card's
@@ -205,6 +241,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -237,6 +274,11 @@ FLAT_WIRE_R, FLAT_SAMPLE, FLAT_ITERS, FLAT_FRAMES, FLAT_FRAME_OPS = 2, 2048, 5, 
 # samples FLAT_MVREG_SAMPLE objects (the other folds FLAT_SAMPLE), and its
 # CPU plain-path check takes its first FLAT_MVREG_CPU objects
 FLAT_MVREG_SAMPLE, FLAT_MVREG_CPU = 256, 32_768
+# the chip budget's cut 5 (the script ran 649 s with phase 14 on an H100,
+# against its 600 s ground rule): the wire round of a fleet larger than
+# FLAT_WIRE_N objects (the 1M, 10M and 250k fleets) takes the first
+# FLAT_WIRE_N objects of its FLAT_WIRE_R replicas
+FLAT_WIRE_N = 62_500
 # the Map phase (9), u32 at the config defaults: A=64, K=16, M=32, D=8,
 # mv_capacity 8; Map<K, Orswot> and Map<K, MVReg> 65,536 objects in chunks
 # of 8,192, Map<K, Map<K2, MVReg>> 1,024 in chunks of 256; R=4 replicas of
@@ -1402,7 +1444,8 @@ def flat_wire_round(cls, reps, extra, uni, leg: str, what: str):
     else:
         raise AssertionError(f"{what}: a truncated blob did not raise WireFormatError")
     n = len(blobs[0])
-    return {"wire_replicas": len(reps), "encode_s": t1 - t0, "parse_s": t2 - t1,
+    return {"wire_replicas": len(reps), "wire_objects": n, "encode_s": t1 - t0,
+            "parse_s": t2 - t1,
             "fold_encode_s": t3 - t2, "wire_bytes_per_object": sum(map(len, blobs[0])) / n,
             "native_fraction": frac}
 
@@ -1437,7 +1480,8 @@ def flat_fold(name, cls, reps, wire_r, extra, uni, card: str):
     t3 = time.perf_counter()
     leg = {"GCounterBatch": "gcounter", "VClockBatch": "vclock", "PNCounterBatch": "pncounter",
            "LWWRegBatch": "lww", "GSetBatch": "gset", "MVRegBatch": "mvreg"}[cls.__name__]
-    wire = flat_wire_round(cls, reps[:wire_r], extra, uni, leg, name)
+    wire = flat_wire_round(cls, [flat_rows(b, slice(0, FLAT_WIRE_N)) for b in reps[:wire_r]],
+                           extra, uni, leg, name)
     row = {"objects": n, "replicas": len(reps), "fold_ms": ms, "merge_ms": merge_ms,
            "merges_per_s": n * len(reps) / (ms / 1e3), "bound_ms_per_merge": b_ms,
            "bound_by": b_by, "share_of_bound": b_ms / merge_ms, "state_bytes": state,
@@ -1447,7 +1491,8 @@ def flat_fold(name, cls, reps, wire_r, extra, uni, card: str):
     log(f"  {name}: {n} objects x {len(reps)} replicas, fold {ms:.4f} ms ({merge_ms:.4f} ms per "
         f"merge, bound {b_ms:.4f} ms by {b_by}, {row['merges_per_s'] / 1e6:.2f}M merges/s); "
         f"device == CPU plain path on {k}, {sample} sampled == scalar engine; wire round "
-        f"({wire['wire_replicas']} replicas): encode {wire['encode_s']:.3f} s, parse "
+        f"({wire['wire_replicas']} replicas of {wire['wire_objects']} objects): encode "
+        f"{wire['encode_s']:.3f} s, parse "
         f"{wire['parse_s']:.3f} s, fold+encode {wire['fold_encode_s']:.3f} s, "
         f"{wire['wire_bytes_per_object']:.1f} B/object, codec share 1.0 [{card}]")
     del cpu
@@ -2995,13 +3040,14 @@ GOSSIP_BUSY_S, GOSSIP_JOIN_S = 30.0, 180.0
 
 
 class GossipMember:
-    """One node of the phase 13 fleet: the ``ClusterNode``, a listener on
-    127.0.0.1:0 whose accepted links run the acceptor's leg through
+    """One node of the phase 13 and 14 fleets: the ``ClusterNode`` (with
+    ``node_kw``, e.g. ``durability=``), a listener on 127.0.0.1:0 whose
+    accepted links run the acceptor's leg through
     ``ResilientTransport(TcpTransport)``, a dialer of the same stack and
     the node's scheduler.  Accepted sessions land in ``inbound`` as
     ``(peer, report or exception, wall seconds)``."""
 
-    def __init__(self, i: int, batch, uni):
+    def __init__(self, i: int, batch, uni, **node_kw):
         import socket
         import threading
 
@@ -3009,7 +3055,7 @@ class GossipMember:
 
         self.i, self.name = i, f"n{i}"
         self.node = ClusterNode(self.name, batch, uni, digest_tree=True,
-                                busy_timeout_s=GOSSIP_BUSY_S)
+                                busy_timeout_s=GOSSIP_BUSY_S, **node_kw)
         self.srv = socket.socket()
         self.srv.bind(("127.0.0.1", 0))
         self.srv.listen(8)
@@ -3061,7 +3107,7 @@ class GossipMember:
         finally:
             link.close()
 
-    def scheduler(self, fleet):
+    def scheduler(self, fleet, fanout: int = 2):
         import socket
 
         from crdt_tpu_torch.cluster import GossipScheduler, Membership, hello_dial
@@ -3069,7 +3115,7 @@ class GossipMember:
 
         roster = Membership()
         for other in fleet:
-            if other is not self:
+            if other is not None and other is not self:
                 roster.add(other.name, address=other.srv.getsockname())
 
         def dial(peer):
@@ -3081,7 +3127,7 @@ class GossipMember:
             hello_dial(link, self.name)
             return link
 
-        self.sched = GossipScheduler(self.node, roster, dial, fanout=2,
+        self.sched = GossipScheduler(self.node, roster, dial, fanout=fanout,
                                      session_timeout_s=GOSSIP_JOIN_S, seed=self.i)
 
     def close(self):
@@ -3451,6 +3497,319 @@ def gossip_phase(dev, card: str, start):
     return launches
 
 
+# -- phase 14 ------------------------------------------------------------------
+
+# durability: n0 on phase 12's replica P and n1 on a copy, phase 13's members
+# (digest tree, loopback TCP through ResilientTransport(TcpTransport), window
+# 16, no faults) with GossipScheduler(fanout=1); n1 durable in DURABLE_DIR
+# (under the checkout's gitignored build/, on the checkout's filesystem) with
+# Durability(interval_rounds=1, retain=2, fsync=True).  Every batch of writes
+# is GOSSIP_WRITES // GOSSIP_NODES = 5,461 adds of phase 13's write stream
+# (writer actor i + 1, members 200-203).  The WAL probe appends
+# DURABLE_PROBE_FRAMES frames of one such batch to a WalWriter of its own.
+DURABLE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "chip_smoke_durable")
+DURABLE_MAX_ROUNDS, DURABLE_PROBE_FRAMES = 6, 128
+# sha256 of save_bytes of a pinned 16-object batch, as the JAX package and
+# the port write it with numpy 2.0.2: the card host's numpy must give the
+# same bytes for its snapshots to be the JAX package's
+NPZ_PIN = "5880742f84dacbe589c7786cd012c6bc0f9d4e26be0690f3a96676504d14e337"
+
+
+def host_available() -> int:
+    """The host's available memory in bytes (``MemAvailable``), -1 unknown."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return -1
+
+
+def durable_room() -> tuple:
+    """``(free bytes on DURABLE_DIR's filesystem, host available bytes)``."""
+    import shutil
+
+    os.makedirs(DURABLE_DIR, exist_ok=True)
+    return shutil.disk_usage(DURABLE_DIR).free, host_available()
+
+
+def npz_pin_matches() -> bool:
+    """Whether this host's numpy writes the pinned checkpoint's bytes
+    (:data:`NPZ_PIN`), twice alike."""
+    import hashlib
+
+    from crdt_tpu_torch import CrdtConfig, OrswotBatch, Universe
+    from crdt_tpu_torch.utils import checkpoint
+    from crdt_tpu_torch.utils.testdata import random_orswot_arrays
+
+    uni = Universe.identity(CrdtConfig(num_actors=8, member_capacity=4, deferred_capacity=2,
+                                       counter_bits=32))
+    batch = OrswotBatch.from_numpy(*random_orswot_arrays(np.random.RandomState(0), 16, 8, 4, 2),
+                                   device="cpu")
+    blobs = [checkpoint.save_bytes(batch, uni) for _ in range(2)]
+    if blobs[0] != blobs[1]:
+        raise AssertionError("save_bytes of one batch gave two different byte strings")
+    return hashlib.sha256(blobs[0]).hexdigest() == NPZ_PIN
+
+
+def read_back(batch, writes, what: str) -> int:
+    """Every ``(objects, members)`` write reads as a member of ``batch``
+    through ``serve.gather``; returns the reads."""
+    from crdt_tpu_torch.serve import gather
+
+    n = 0
+    for obj, mem in writes:
+        val = gather(batch, obj, member=mem).val
+        if not (val == 1).all():
+            raise AssertionError(f"{what}: {int((val != 1).sum())} of {obj.size} acknowledged "
+                                 "writes do not read as members")
+        n += obj.size
+    return n
+
+
+def pct(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs) * 1e3, q)) if len(xs) else float("nan")
+
+
+def schedule(fleet):
+    """Each member's ``GossipScheduler(fanout=1)`` over the others."""
+    for m in fleet:
+        m.scheduler(fleet, fanout=1)
+
+
+def durable_phase(dev, card: str, start):
+    """Phase 14: a durable node on the card takes fsync'd WAL writes,
+    checkpoints the 1.25M-object replica at round end, is killed in the
+    middle of a fold, is restored from its snapshot and WAL onto the card
+    and rejoins its peer by delta sync.  Returns the merge kernel's
+    launches on the phase's path (the sessions' applies and audits)."""
+    import resource
+    import shutil
+
+    import torch
+
+    from crdt_tpu_torch import CrdtConfig, OrswotBatch, StabilityTracker, Universe, _build
+    from crdt_tpu_torch.cluster import CrashPlan, InjectedCrash, arm_crashes, disarm_crashes
+    from crdt_tpu_torch.durable import Durability, WalWriter, recover
+    from crdt_tpu_torch.oplog import derive_add_ctx, encode_ops_frame
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(SEED + 14)
+    k = GOSSIP_WRITES // GOSSIP_NODES
+    replica_bytes = nbytes([getattr(start, f) for f in PLANES])
+    shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+    free, avail = durable_room()
+    rep = {"card": card, "objects": N_TOTAL, "shape": [A, M, D], "replica_bytes": replica_bytes,
+           "fleet": "phase 12's replica P and a copy", "writes_per_batch": k,
+           "durability": {"interval_rounds": 1, "retain": 2, "fsync": True},
+           "disk_free_bytes": free, "host_available_bytes": avail,
+           "numpy": np.__version__, "npz_bytes_match_pin": npz_pin_matches()}
+    log(f"  durable directory {DURABLE_DIR}: {free / 1e9:.2f} GB free; host memory available "
+        f"{avail / 1e9:.2f} GB; one generation needs ~{replica_bytes / 1e9:.2f} GB [{card}]")
+    if free < 1.05 * replica_bytes:
+        raise AssertionError(f"the durable directory's filesystem has {free} bytes free, less "
+                             f"than one generation ({replica_bytes} bytes of planes); host "
+                             f"memory available {avail} bytes")
+    torch.cuda.reset_peak_memory_stats()
+    uni = Universe.identity(CrdtConfig.gpu_default(num_actors=A, member_capacity=M,
+                                                   deferred_capacity=D))
+    wobj = read_traffic(rng)[2]
+    fleet, kept, acked, rounds, write_s = [], [[], []], [[], []], [], [[], []]
+    off = 0
+
+    def writes(m):
+        nonlocal off
+        secs, _, obj, mem = gossip_writes(m, wobj[off:off + k], rng, kept)
+        off += k
+        acked[m.i].append((obj, mem))
+        write_s[m.i].append(secs)
+
+    def run_round(r, what):
+        x = gossip_round(fleet, r)
+        legs = [(a, b, c, y.diverged, round(y.profile.wall_ns / 1e9, 3)) for a, b, c, y in
+                x["reports"]]
+        log(f"  {what} round {r}: {x['wall_s']:.3f} s, legs (node, peer, leg, diverged, wall "
+            f"s) {legs}; {len(x['failed'])} failed, {len(x['busy'])} refused by a busy bound "
+            f"[{card}]")
+        if x["failed"]:
+            raise AssertionError(f"{what} round {r}: failed session legs {x['failed']}")
+        return x
+
+    with K2Launches() as k2:
+        try:
+            fleet.append(GossipMember(0, start, uni))
+            copy = OrswotBatch(*(getattr(start, f).clone() for f in PLANES))
+            del start
+            fleet.append(GossipMember(1, copy, uni, durability=Durability(
+                DURABLE_DIR, interval_rounds=1, retain=2, fsync=True)))
+            del copy
+            schedule(fleet)
+            torch.cuda.synchronize()
+            rep["build_s"] = time.perf_counter() - t_phase
+            _build.reset_launch_counts()
+            t_path = time.perf_counter()
+            # 1. writes on both nodes, n1's WAL-appended before the fold
+            writes(fleet[0])
+            writes(fleet[1])
+            # 2. a round; n1's round end writes generation 1
+            for r in (1, 2):
+                x = run_round(r, "checkpoint")
+                x["phase"] = "checkpoint"
+                rounds.append(x)
+                if fleet[1].node.last_snapshot is not None:
+                    break  # a session racing the round end defers the checkpoint
+            snap = fleet[1].node.last_snapshot
+            if snap is None or snap.generation != 1:
+                raise AssertionError(f"n1 wrote no generation 1 at round end: {snap}")
+            ck_digests, ck_root = snap.digests, snap.root
+            rep["checkpoint"] = {"generation": snap.generation, "wal_seq": snap.wal_seq,
+                                 "bytes": snap.nbytes, "split_s": dict(snap.split_s),
+                                 "wall_s": sum(snap.split_s.values())}
+            k2_round1 = _build.launch_counts()["orswot_merge"]
+            # 3. more writes on n1: WAL frames above generation 1's sequence
+            writes(fleet[1])
+            # 4. the kill: n1 dies in its fold, after the WAL append
+            obj = wobj[off:off + k]
+            off += k
+            mem = (GOSSIP_MEMBER0 + rng.randint(0, GOSSIP_MEMBERS, k)).astype(np.int32)
+            ops = derive_add_ctx(fleet[1].node.write_clock(), obj, np.full(k, 2, np.int32),
+                                 member=mem)[0]
+            state = arm_crashes(CrashPlan(at={"oplog.fold.n1": 1}))
+            try:
+                fleet[1].node.submit_ops(ops)
+            except InjectedCrash:
+                pass
+            finally:
+                disarm_crashes()
+            if state.fired != ["oplog.fold.n1"]:
+                raise AssertionError(f"the crash plan fired {state.fired}")
+            killed = (obj, mem)
+            del ops
+            wal = fleet[1].node.durability
+            rep["wal"] = {**wal.counts(), **wal.snapshot(),
+                          "append_ms": [s * 1e3 for s in wal.wal.append_seconds()]}
+            del wal
+            # 5. the kill drops every reference to n1: its scheduler, its
+            # listener and its node, with no cyclic collection
+            k2.check("phase 14's checkpoint round")
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            fleet[1].close()
+            fleet[1].sched = None
+            fleet[1] = None
+            freed = before - torch.cuda.memory_allocated()
+            rep["kill_freed_bytes"] = freed
+            log(f"  n1 killed in its fold after {rep['wal']['wal_frames']} WAL frames; device "
+                f"memory fell {freed / 1e9:.3f} GB (one replica {replica_bytes / 1e9:.3f} GB)")
+            if freed < replica_bytes:
+                raise AssertionError(f"dropping n1 freed {freed} bytes of device memory, less "
+                                     f"than its replica's {replica_bytes}: a reference survives")
+            # 6. n0 writes while n1 is down
+            writes(fleet[0])
+            # 7. restore from the snapshot and the WAL onto the card
+            t0 = time.perf_counter()
+            rec = recover(DURABLE_DIR, device="cuda")
+            torch.cuda.synchronize()
+            rep["restore"] = {"wall_s": time.perf_counter() - t0, "split_s": dict(rec.split_s),
+                              "report": dataclasses.asdict(rec.report)}
+            if rec.report.generation != 1 or not np.array_equal(rec.snapshot_digests,
+                                                                 ck_digests):
+                raise AssertionError("the restored generation's digests differ from n1's at "
+                                     "its checkpoint")
+            if rec.report.replayed_ops < 2 * k:
+                raise AssertionError(f"the replay folded {rec.report.replayed_ops} ops, fewer "
+                                     f"than the {2 * k} WAL'd above the snapshot")
+            rep["read_back_before_rejoin"] = read_back(rec.batch, acked[1] + [killed],
+                                                       "the recovered n1")
+            stability = StabilityTracker()
+            if rec.frontier is not None:
+                stability.restore(rec.frontier)
+            fleet[1] = GossipMember(1, rec.batch, rec.universe, applier=rec.applier,
+                                    stability_tracker=stability, durability=Durability(
+                                        DURABLE_DIR, interval_rounds=DURABLE_MAX_ROUNDS + 1,
+                                        retain=2, fsync=True))
+            del rec, stability
+            schedule(fleet)
+            # 8. the rejoin: rounds until the digests agree and a round finds nothing
+            for r in range(1, DURABLE_MAX_ROUNDS + 1):
+                x = run_round(r, "rejoin")
+                x["phase"], x["digests_equal"] = "rejoin", None
+                if x["diverged"] == 0:
+                    digests = [m.node.digest() for m in fleet]
+                    x["digests_equal"] = np.array_equal(digests[0], digests[1])
+                rounds.append(x)
+                if x["digests_equal"]:
+                    break
+            torch.cuda.synchronize()
+            rep["path_s"] = time.perf_counter() - t_path
+            launches = _build.launch_counts()["orswot_merge"]
+            if not rounds[-1]["digests_equal"]:
+                raise AssertionError(f"no convergence in {len(rounds)} rounds")
+            if launches - k2_round1 == 0:
+                raise AssertionError("the rejoin never launched the merge kernel")
+            if len(k2.seen) != launches - len(k2.checked):
+                raise AssertionError(f"the merge kernel launched {launches} times in the "
+                                     f"phase, {len(k2.seen) + len(k2.checked)} captured")
+            k2.check("phase 14's rejoin applies")
+            rejoin = [y for x in rounds if x["phase"] == "rejoin" for *_, y in x["reports"]]
+            if any(y.full_state_fallback or y.full_bytes_sent for y in rejoin):
+                raise AssertionError("a rejoin session shipped full state")
+            everyone = acked[0] + acked[1] + [killed]
+            rep["read_back_after_rejoin"] = sum(read_back(m.node.batch, everyone, m.name)
+                                                for m in fleet)
+            full, _ = full_state_bytes(fleet[0].node.batch, uni)
+            rep["rejoin"] = {
+                "rounds": sum(x["phase"] == "rejoin" for x in rounds),
+                "leg_wall_s": [y.profile.wall_ns / 1e9 for y in rejoin],
+                "diverged": [y.diverged for y in rejoin],
+                "delta_bytes": sum(y.delta_bytes_sent for y in rejoin),
+                "bytes_sent": sum(y.bytes_sent for y in rejoin),
+                "full_state_bytes": full, "k2_launches": launches - k2_round1}
+            rep["k2_launches"], rep["k2_launches_checked"] = launches, len(k2.checked)
+            # per batch, in order: n0 before the round and while n1 is
+            # down; n1 (WAL'd) before the round and after it
+            rep["ack_writes_per_s"] = {"n0": [k / s for s in write_s[0]],
+                                       "n1_wal": [k / s for s in write_s[1]]}
+            # the WAL's append latency with fsync on, on a writer of its own
+            probe = WalWriter(os.path.join(DURABLE_DIR, "probe"), fsync=True)
+            frame = encode_ops_frame(kept[1][0])
+            for _ in range(DURABLE_PROBE_FRAMES):
+                probe.append(frame)
+            probe.close()
+            secs = probe.append_seconds()
+            rep["wal_probe"] = {"frames": len(secs), "frame_bytes": len(frame),
+                                "append_ms_p50": pct(secs, 50), "append_ms_p99": pct(secs, 99)}
+        finally:
+            for m in fleet:
+                if m is not None:
+                    m.close()
+            shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+
+    rep.update(peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               peak_host_rss_gb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6,
+               rounds=[{"phase": x["phase"], "round": x["round"], "wall_s": x["wall_s"],
+                        "diverged": x["diverged"]} for x in rounds],
+               phase_s=time.perf_counter() - t_phase)
+    c, s_ = rep["checkpoint"], rep["restore"]
+    log(f"  checkpoint: generation 1, {c['bytes']} bytes on disk in {c['wall_s']:.3f} s "
+        f"({ {k_: round(v, 3) for k_, v in c['split_s'].items()} }); restore {s_['wall_s']:.3f} s "
+        f"({ {k_: round(v, 3) for k_, v in s_['split_s'].items()} }), replayed "
+        f"{s_['report']['replayed_frames']} frames, {s_['report']['replayed_ops']} ops "
+        f"[{card}]")
+    log(f"  rejoin: {rep['rejoin']['rounds']} rounds, rows diverged {rep['rejoin']['diverged']}, "
+        f"{rep['rejoin']['delta_bytes']} delta bytes against {rep['rejoin']['full_state_bytes']} "
+        f"of full state; WAL append p50 {rep['wal_probe']['append_ms_p50']:.3f} ms, p99 "
+        f"{rep['wal_probe']['append_ms_p99']:.3f} ms; K2 {rep['k2_launches']} launches, each "
+        f"equal to merge_reference; peak device memory {rep['peak_memory_gb']:.2f} GB, host RSS "
+        f"{rep['peak_host_rss_gb']:.2f} GB; phase 14 {rep['phase_s']:.1f} s [{card}]")
+    print("durable " + json.dumps(rep, default=lambda x: x.tolist() if hasattr(x, "tolist")
+                                  else str(x)), flush=True)
+    return rep["k2_launches"]
+
+
 def main() -> int:
     import torch
 
@@ -3475,6 +3834,9 @@ def main() -> int:
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[-1]
     log(f"  nvcc: {nvcc}")
+    free, avail = durable_room()
+    log(f"  disk free under {DURABLE_DIR}: {free / 1e9:.2f} GB; host memory available "
+        f"{avail / 1e9:.2f} GB")
 
     log("== phase 2: build")
     t0 = time.perf_counter()
@@ -3596,6 +3958,11 @@ def main() -> int:
     log("== phase 13: a gossip fleet (three cluster nodes over loopback TCP taking writes and "
         "serving reads)")
     gossip_k2 = gossip_phase(dev, card, fleet)
+    torch.cuda.empty_cache()
+
+    log("== phase 14: durability (a checkpointed node killed mid-fold, restored from its "
+        "snapshot and WAL, rejoining by delta sync)")
+    durable_k2 = durable_phase(dev, card, fleet)
     del fleet
     torch.cuda.empty_cache()
 
@@ -3609,6 +3976,7 @@ def main() -> int:
          "read_launches": read_k2 if name == "orswot_merge" else 0,
          "cluster_launches": cluster_k2 if name == "orswot_merge" else 0,
          "gossip_launches": gossip_k2 if name == "orswot_merge" else 0,
+         "durable_launches": durable_k2 if name == "orswot_merge" else 0,
          "max_abs_err": worst[name], "ms": timed[name]["ms"],
          "plain_ms": timed[name]["plain_ms"], "bound_ms": timed[name]["bound_ms"],
          "bound_by": timed[name]["bound_by"], "library_ms": None}

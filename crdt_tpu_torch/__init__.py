@@ -17,7 +17,10 @@ and :func:`sync_pair`, which run the protocol between two replicas), the
 transports a session runs over, the peer roster and the gossiping node
 (``cluster/``: :class:`TcpTransport`, the ARQ :class:`ResilientTransport`,
 seeded fault injection, :class:`Membership`, :class:`ClusterNode` and
-:class:`GossipScheduler`) and causal GC
+:class:`GossipScheduler`), durability (``durable/``: the snapshot
+store, the write-ahead log, :func:`~crdt_tpu_torch.durable.recover` and
+the ``Durability`` policy a node takes; ``utils/checkpoint.py`` writes
+the JAX package's checkpoint bytes) and causal GC
 (``gc/``: the fleet watermark, settle, repack, truncate, :class:`GcEngine`);
 the read front-end (``serve/``: :func:`gather` and :class:`QueryEngine`,
 ``ReadCtx`` rows for every kind, consistency admission, the read frames
@@ -74,10 +77,12 @@ from .config import CrdtConfig, MERGE_IMPLS
 from .device import resolve_device
 from .error import (
     CapacityOverflowError,
+    CheckpointFormatError,
     ConflictingMarker,
     ConsistencyUnavailableError,
     CrdtError,
     DeviceUnavailableError,
+    DurabilityError,
     KernelError,
     OpLogOverflowError,
     PeerUnavailableError,
@@ -101,6 +106,7 @@ from .utils.interning import IdentityRegistry, Registry, Universe
 __all__ = [
     "CapacityOverflowError",
     "CapacityTracker",
+    "CheckpointFormatError",
     "ClusterNode",
     "ConflictingMarker",
     "ConsistencyUnavailableError",
@@ -108,6 +114,7 @@ __all__ = [
     "CrdtError",
     "DeviceUnavailableError",
     "DigestTree",
+    "DurabilityError",
     "FleetWatermark",
     "GCounterBatch",
     "GcEngine",

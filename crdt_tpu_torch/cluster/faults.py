@@ -19,8 +19,9 @@ Each keeps its tallies as plain counts (``injected``, ``refused``).
 
 The crash half stands in for ``kill -9``: an armed :class:`CrashPlan`
 makes the k-th hit of a named :func:`crash_point` raise
-:class:`InjectedCrash`, which the cluster node's op drain and session
-start call.
+:class:`InjectedCrash`, which the cluster node's op drain, session start
+and checkpoint, the WAL's append and the snapshot store's rename call.
+:class:`TornWriter` tears a snapshot write short.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import random
 import struct
 import threading
 import time
-from typing import Dict, List, Mapping, Optional, Sequence
+from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 from ..error import PeerUnavailableError, TransportClosedError
 from .transport import Transport, queue_pair
@@ -268,3 +269,52 @@ def crash_point(name: str) -> None:
     state = _crash_state
     if state is not None and state.hit(name):
         raise InjectedCrash(f"injected kill -9 at crash point {name!r}")
+
+
+# -- disk faults (torn writes) --------------------------------------------------------
+
+
+class TornWriter:
+    """A snapshot writer whose ``at_write``-th write (1-based) is torn.
+
+    Wraps any ``writer(path, pieces)`` (the
+    :class:`~crdt_tpu_torch.durable.snapshot.SnapshotStore` hook): the torn
+    write keeps only the first ``keep_frac`` of the file's bytes, the short
+    write a dying kernel leaves, and still renames into place, so the
+    store's length and CRC checks are what must catch it.  ``injected``
+    counts the tears; ``at_write`` may be moved (``calls + 1`` tears the
+    next write)."""
+
+    def __init__(self, inner: Callable[[str, Sequence], None], *, at_write: int = 1,
+                 keep_frac: float = 0.5):
+        if not 0.0 <= keep_frac < 1.0:
+            raise ValueError(f"keep_frac {keep_frac} not in [0, 1)")
+        if at_write < 1:
+            raise ValueError(f"at_write {at_write} < 1")
+        self._inner = inner
+        self.at_write = int(at_write)
+        self.keep_frac = float(keep_frac)
+        self._lock = threading.Lock()
+        self._calls = 0
+        self.injected = 0
+
+    @property
+    def calls(self) -> int:
+        """Writes seen so far."""
+        with self._lock:
+            return self._calls
+
+    def __call__(self, path: str, pieces: Sequence) -> None:
+        with self._lock:
+            self._calls += 1
+            torn = self._calls == self.at_write
+            if torn:
+                self.injected += 1
+        if torn:
+            keep = int(sum(len(p) for p in pieces) * self.keep_frac)
+            kept = []
+            for piece in pieces:
+                kept.append(piece[:keep])
+                keep -= len(kept[-1])
+            pieces = kept
+        self._inner(path, pieces)

@@ -1,6 +1,5 @@
 """The cluster node and its gossip scheduler (the port of the JAX
-package's ``cluster/gossip.py``, less durability and the mesh's
-shard-subset repair).
+package's ``cluster/gossip.py``, less the mesh's shard-subset repair).
 
 :class:`ClusterNode` owns one replica's fleet batch: sessions it
 initiates (:meth:`~ClusterNode.sync_with`) or accepts
@@ -8,17 +7,21 @@ initiates (:meth:`~ClusterNode.sync_with`) or accepts
 live writes enter through :meth:`~ClusterNode.submit_ops` and fold at
 once or, mid-session, when the session ends (and ride the session's op
 piggyback meanwhile), and reads run outside the lock against a batch
-snapshot (:meth:`~ClusterNode.serve_reads`).
+snapshot (:meth:`~ClusterNode.serve_reads`).  A durable node
+(``durability=``, a :class:`~crdt_tpu_torch.durable.Durability`) appends
+every ingested op batch to its WAL before the fold and checkpoints at
+round end (:meth:`~ClusterNode.checkpoint`).
 
 :class:`GossipScheduler` picks the peers of each round: never-synced
 peers first, then by seconds since the last converged sync, ties toward
 the one that diverged most (:meth:`~crdt_tpu_torch.obs.convergence.
 ConvergenceTracker.urgency`); dead peers only every ``probe_dead_every``
 rounds.  It runs up to ``fanout`` sessions at once, never two on one
-endpoint, then refreshes the node's capacity, heat and stability planes
-and runs GC when due.  The JAX package's ``cluster.*`` counters are
-:meth:`GossipScheduler.counts`, and its ``cluster.gossip.*`` gauges the
-``health`` dict of each :class:`RoundReport`.
+endpoint, then refreshes the node's capacity, heat and stability planes,
+runs GC when due, and then the node's checkpoint when due.  The JAX
+package's ``cluster.*`` counters are :meth:`GossipScheduler.counts`, and
+its ``cluster.gossip.*`` gauges the ``health`` dict of each
+:class:`RoundReport`.
 """
 
 from __future__ import annotations
@@ -75,8 +78,8 @@ class ClusterNode:
 
     def __init__(self, node_id: str, batch, universe, *, full_state_threshold: float = 0.5,
                  busy_timeout_s: float = 10.0, observatory=None, oplog=None,
-                 capacity_tracker=None, gc=None, digest_tree: bool = False, applier=None,
-                 lag_tracker=None, stability_tracker=None, heat_tracker=None):
+                 capacity_tracker=None, gc=None, digest_tree: bool = False, durability=None,
+                 applier=None, lag_tracker=None, stability_tracker=None, heat_tracker=None):
         from ..obs import heat as obs_heat
         from ..obs import latency as obs_latency
         from ..obs import stability as obs_stability
@@ -93,12 +96,17 @@ class ClusterNode:
         self.digest_tree = bool(digest_tree)
         self.capacity_tracker = capacity_tracker
         self.gc = gc
+        self.durability = durability
         self.observatory = observatory
         self._oplog = oplog
         self._applier = applier
         self._lock = threading.Lock()    # guards batch + last reports
         self._busy = threading.Lock()    # serializes whole sessions
         self._mint = threading.Lock()    # serializes dot minting
+        # makes each (WAL append, log append) pair atomic against the
+        # checkpoint's wal_seq capture: every frame below the captured
+        # sequence is then in the log by the drain (the replay bound)
+        self._ingest = threading.Lock()
         self._batch = batch
         self._last_report: Optional[SyncReport] = None
         self._last_gc_report = None
@@ -148,12 +156,25 @@ class ClusterNode:
         if not isinstance(ops, OpBatch):
             raise TypeError(f"submit_ops wants an OpBatch or an encoded op frame, got "
                             f"{type(ops).__name__}")
-        log = self._ensure_oplog()
-        log.append(ops)
+        self._log_append(ops, ops)
         # write-to-visible lag starts here
         self.lag_tracker.record_ingest_batch(ops)
         self.try_drain()
-        return len(log)
+        return len(self._oplog)
+
+    def _log_append(self, ops, wal) -> None:
+        """Queue ``ops`` in the op log; a durable node first appends ``wal``
+        (the ops, or their frame's bytes) to its WAL, the pair atomic
+        against the checkpoint's ``wal_seq`` capture.  A crash (or an
+        overflow raise) after the append may replay ops the caller saw
+        rejected; the batched apply dedups them."""
+        log = self._ensure_oplog()
+        if self.durability is None or not len(ops):
+            log.append(ops)
+            return
+        with self._ingest:
+            self.durability.wal_append(wal)
+            log.append(ops)
 
     def write_clock(self) -> torch.Tensor:
         """The node's write view of the fleet clock: the batch clock joined
@@ -277,11 +298,14 @@ class ClusterNode:
 
     def _op_sink(self, frame: bytes) -> None:
         """The session's piggyback sink: peer ops queue like any other
-        write and fold at the session's tail drain."""
+        write and fold at the session's tail drain, WAL'd first on a
+        durable node (the frame's bytes verbatim: the wire codec is the
+        WAL's)."""
         from ..oplog.wire import decode_ops_frame
 
-        ops = decode_ops_frame(bytes(frame), num_actors=self.universe.config.num_actors)
-        self._ensure_oplog().append(ops)
+        frame = bytes(frame)
+        self._log_append(decode_ops_frame(frame, num_actors=self.universe.config.num_actors),
+                         frame)
 
     def _run_session(self, peer_label: str, transport: Transport) -> SyncReport:
         if not self._busy.acquire(timeout=self.busy_timeout_s):
@@ -335,6 +359,48 @@ class ClusterNode:
                 self._batch = batch
                 self._last_gc_report = report
             return report
+        finally:
+            self._busy.release()
+
+    @property
+    def last_snapshot(self):
+        """The newest checkpoint's :class:`~crdt_tpu_torch.durable.Snapshot`
+        (without its planes; None until one ran)."""
+        return self.durability.last_snapshot if self.durability is not None else None
+
+    def checkpoint(self):
+        """One durability checkpoint: capture the WAL's replay bound under
+        the ingest lock, fold the pending ops, then snapshot the planes,
+        the parked ops, the GC watermark and the stability frontier.
+        Returns the :class:`~crdt_tpu_torch.durable.Snapshot` (its
+        ``split_s`` with the ``drain`` seconds), or None without a
+        durability manager or when a session holds the busy lock (it
+        retries next round, as GC does)."""
+        if self.durability is None or not self._busy.acquire(blocking=False):
+            return None
+        try:
+            # capture before the drain: every frame below the sequence has
+            # made its log append, so the drain folds it into the snapshot;
+            # frames at or above it replay on recovery
+            t = time.perf_counter()
+            with self._ingest:
+                wal_seq = self.durability.wal.head_seq
+            self._drain_ops_locked()
+            drain_s = time.perf_counter() - t
+            with self._lock:
+                batch = self._batch
+                gc_report = self._last_gc_report
+            parked = self._applier.parked if self._applier is not None \
+                and len(self._applier.parked) else None
+            watermark = gc_report.watermark.clock if gc_report is not None \
+                and gc_report.watermark is not None else None
+            frontier = self.stability.frontier_clock() if self.stability is not None else None
+            faults_mod.crash_point(f"durable.checkpoint.{self.node_id}")
+            snap = self.durability.checkpoint(batch, self.universe, wal_seq=wal_seq,
+                                              watermark=watermark, parked=parked,
+                                              frontier=frontier, node_id=self.node_id)
+            snap.split_s["drain"] = drain_s
+            return snap
         finally:
             self._busy.release()
 
@@ -544,6 +610,11 @@ class GossipScheduler:
         if self.node.gc is not None and self.node.gc.due(round_no):
             if self.node.collect_garbage(peers=roster) is not None:
                 self.node.sample_capacity()
+        # the checkpoint after GC, so it holds the settled planes and the
+        # newest watermark; a session racing in defers it a round (the WAL
+        # holds every write meanwhile)
+        if self.node.durability is not None and self.node.durability.due(round_no):
+            self.node.checkpoint()
         return report
 
     def _round_health(self, report: RoundReport) -> Dict[str, int]:

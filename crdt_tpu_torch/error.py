@@ -4,7 +4,8 @@ Own copies of the JAX package's ``CrdtError``, ``ConflictingMarker``,
 ``CapacityOverflowError``, ``WireFormatError``, ``OpLogOverflowError``,
 ``SyncProtocolError``, ``TransportError`` (with its four subclasses
 ``SyncTimeoutError``, ``PeerUnavailableError``, ``TransportClosedError``
-and ``TransportFrameError``), ``ConsistencyUnavailableError`` and
+and ``TransportFrameError``), ``ConsistencyUnavailableError``,
+``DurabilityError`` (with ``CheckpointFormatError``) and
 ``raise_for_overflow`` (the port
 imports nothing of that package), plus the errors that only a
 GPU build has: a missing card, a kernel or the host codec that does not
@@ -106,6 +107,24 @@ class ConsistencyUnavailableError(CrdtError):
         super().__init__(message)
         self.mode = mode
         self.reason = reason
+
+
+class DurabilityError(CrdtError):
+    """The durable-replica layer (:mod:`crdt_tpu_torch.durable`) could not
+    produce or restore persistent state: every retained snapshot
+    generation rejected, a WAL directory in an impossible shape.  Not a
+    ``ValueError``: an unrecoverable store needs an operator (restore a
+    backup, rejoin as a fresh replica); one malformed payload is a
+    :class:`CheckpointFormatError`."""
+
+
+class CheckpointFormatError(DurabilityError, ValueError):
+    """One checkpoint or snapshot payload violated its binary format: a
+    torn or truncated container, a CRC mismatch, a version skew, or
+    restored planes whose digest-tree root disagrees with the one
+    recorded at save time.  Recovery takes it as "this generation is
+    bad" and falls back, loudly.  Subclasses ``ValueError``, the
+    checkpoint loader's contract for a corrupt payload."""
 
 
 class DeviceUnavailableError(CrdtError, RuntimeError):

@@ -544,6 +544,28 @@ def to_binary(obj: Any) -> bytes:
     return out.getvalue()
 
 
+def to_binary_pieces(obj: dict) -> list:
+    """:func:`to_binary` of a dict, as a list of pieces whose concatenation
+    is those bytes.  A ``memoryview`` value encodes as the bytes it views
+    and is its own piece, not copied (a snapshot's checkpoint container is
+    gigabytes): the tag and length prefix go before it, and the entries
+    stay sorted by encoded key."""
+    pieces, out = [], io.BytesIO()
+    out.write(bytes((_T_DICT,)))
+    _write_uvarint(out, len(obj))
+    for kb, v in sorted(((to_binary(k), v) for k, v in obj.items()), key=lambda kv: kv[0]):
+        out.write(kb)
+        if isinstance(v, memoryview):
+            view = v.cast("B")
+            out.write(bytes((_T_BYTES,)))
+            _write_uvarint(out, view.nbytes)
+            pieces += [out.getvalue(), view]
+            out = io.BytesIO()
+        else:
+            _encode(out, v)
+    return pieces + [out.getvalue()]
+
+
 def from_binary(data: bytes) -> Any:
     """Reconstruct a value written by :func:`to_binary`.
 

@@ -1007,3 +1007,53 @@ def test_gossip_on_the_card_equals_the_cpu(dev):
             assert torch.equal(getattr(g, f).cpu(), getattr(w, f)), f
     assert got[1] == want[1]
     assert all(r.converged and r.tree_mode for r in got[3])
+
+
+def test_durable_snapshot_recovery_and_rejoin_on_the_card(dev, tmp_path):
+    """A node on the card checkpoints (the planes read from the card), takes
+    WAL'd writes and is dropped; ``recover(device="cuda")`` gives its planes
+    bit for bit, equal to a CPU recovery of the same directory, and neither
+    launches a kernel; the recovered node rejoins its peer over queue links
+    by delta sync, the merge kernel on its applies."""
+    import threading
+
+    from crdt_tpu_torch.cluster import ClusterNode, queue_pair
+    from crdt_tpu_torch.durable import Durability, recover
+    from crdt_tpu_torch.oplog import OpLog
+
+    uni, ((p, _), (q, _)) = _sync_pair(dev, n=4096, a=64, m=16, d=2)
+    node = ClusterNode("a", _on(p, dev), uni, oplog=OpLog(uni),
+                       durability=Durability(tmp_path))
+    _build.reset_launch_counts()
+    snap = node.checkpoint()
+    rows = np.arange(0, 4096, 97)
+    node.submit_writes(rows, np.full(rows.size, 1 << 22, np.int32), actor=5)
+    want = [getattr(node.batch, f).clone() for f in ("clock", "ids", "dots", "d_ids",
+                                                      "d_clocks")]
+    del node
+    rec = recover(tmp_path, device="cuda")
+    cpu = recover(tmp_path, device="cpu")
+    assert sum(_build.launch_counts().values()) == 0
+    assert snap.generation == rec.report.generation == 1
+    assert rec.report.replayed_ops == rows.size
+    for w, f in zip(want, ("clock", "ids", "dots", "d_ids", "d_clocks")):
+        assert getattr(rec.batch, f).device.type == "cuda"
+        assert torch.equal(getattr(rec.batch, f), w), f
+        assert torch.equal(getattr(cpu.batch, f), w.cpu()), f
+    a = ClusterNode("a", rec.batch, uni, oplog=OpLog(uni), applier=rec.applier,
+                    durability=Durability(tmp_path))
+    b = ClusterNode("b", _on(q, dev), uni, oplog=OpLog(uni))
+    _build.reset_launch_counts()
+    reports = []
+    for _ in range(4):
+        ta, tb = queue_pair(default_timeout=60.0)
+        t = threading.Thread(target=lambda: reports.append(b.accept(tb, "a")), daemon=True)
+        t.start()
+        reports.append(a.sync_with("b", ta))
+        t.join(timeout=120.0)
+        assert not t.is_alive()
+        if np.array_equal(a.digest(), b.digest()):
+            break
+    assert np.array_equal(a.digest(), b.digest())
+    assert _build.launch_counts()["orswot_merge"] >= 1
+    assert not any(r.full_state_fallback or r.full_bytes_sent for r in reports)

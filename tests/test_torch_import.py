@@ -55,18 +55,20 @@ def test_scan_covers_every_module():
             "watermark.py", "compact.py", "repack.py", "query.py", "consistency.py",
             "stability.py", "heat.py", "kernels.py", "capacity.py", "workload.py",
             "session.py", "events.py", "latency.py", "transport.py", "faults.py",
-            "membership.py"} <= names
+            "membership.py", "gossip.py", "checkpoint.py", "wal.py", "snapshot.py",
+            "recover.py", "manager.py"} <= names
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "from_numpy", "zeros", "build_fleet_planes",
                                    "map_zeros", "map_from_scalar", "build_tree",
-                                   "heat_tracker", "device_memory"])
+                                   "heat_tracker", "device_memory", "recover"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(entry, monkeypatch):
     from crdt_tpu_torch import (
         CapacityTracker, CrdtConfig, DeviceUnavailableError, HeatTracker, MapBatch, MVRegKernel,
         OrswotBatch, Universe,
     )
     from crdt_tpu_torch.device import resolve_device
+    from crdt_tpu_torch.durable import recover
     from crdt_tpu_torch.sync import build_tree
     from crdt_tpu_torch.utils.testdata import build_fleet_planes, fleet_columns
 
@@ -90,6 +92,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(entry, monkeypatc
         "build_tree": lambda: build_tree(np.arange(4, dtype=np.uint64)),
         "heat_tracker": lambda: HeatTracker(),
         "device_memory": lambda: CapacityTracker().sample_device_memory(),
+        "recover": lambda: recover(REPO / "no-such-durable-dir"),
     }
     with pytest.raises(DeviceUnavailableError, match="cuda"):
         calls[entry]()
