@@ -166,7 +166,9 @@ Phases, in order; any failure ends the run with a nonzero exit:
 13. gossip fleet — three ``ClusterNode``s on the card, n0 holding phase
    12's reconciled replica P and n1, n2 copies of it (1.25M objects, A=64,
    M=16, D=2, u32), each with the digest tree, its own lag, stability and
-   heat trackers, a loopback TCP listener accepting through
+   heat trackers, its own metrics registry, ``FleetObservatory`` (every
+   session leg swaps FLEET frames) and exporter on 127.0.0.1:0, a
+   loopback TCP listener accepting through
    ``ResilientTransport(TcpTransport)`` (window 16, no faults), a roster of
    the other two and a ``GossipScheduler(fanout=2, seed=i)``.  A fleet
    round runs the three schedulers' ``run_round`` in turn; before each of
@@ -189,7 +191,25 @@ Phases, in order; any failure ends the run with a nonzero exit:
    JSON line carries the numbers: rounds and their walls, each session
    leg's wall and profile split, the merge kernel's launches and device
    time, writes and reads per second with the serve stages, parks and
-   rejections per mode, peak memory.
+   rejections per mode, peak memory.  After every round the main thread
+   scrapes the seven routes of every node's exporter (and an unknown one,
+   404) while the reader runs: ``/metrics`` and ``/kernels`` parse as
+   Prometheus text naming only families of the publisher's table,
+   ``/kernels``' merge-kernel calls equal ``launch_counts()`` and the
+   launches the wrapper capture saw, and
+   ``/healthz``' reads match ``ServeLoop.counts()`` (exactly once the
+   reader stopped).  After convergence one more, idle round runs, its
+   first scheduler's round under ``tracing.profile`` (the device's busy
+   share of that round; a profiler that fails or sees no device time
+   fails the phase; the trace is removed).  Then every node's
+   ``/fleet`` must list the three nodes with its own slice's scheduler
+   counts and the fleet's session legs the slices' sum, the merged hot
+   list of fresh captures must equal ``merge_hot`` of the nodes'
+   sketches, and each ``/heat?plan=mesh:8`` report ``score_plan`` of
+   the node's heat.  The ``gossip`` line adds FLEET bytes per leg, the
+   observatories' encode and merge seconds and their share of the legs'
+   walls, each route's scrape ms (p50, max), the merged snapshot's bytes
+   and nodes, and the profiled round.
 
 14. durability — two ``ClusterNode``s on the card, n0 on phase 12's
    replica P and n1 on a copy, phase 13's listeners and dialers with a
@@ -255,7 +275,9 @@ N_TOTAL, A, M, D, R, CHUNK = 1_250_000, 64, 16, 2, 8, 62_500
 BASE, NOVEL, DEFERRED_FRAC = 6, 1, 0.25
 U_CAP = 16
 CHECK_N = 4096
-WIRE_MIN_CHUNKS, WIRE_PREP_S, WIRE_SAMPLE, WIRE_ROUNDS = 2, 75.0, 64, 2
+# phase 6 encodes chunks until WIRE_PREP_S (at least WIRE_MIN_CHUNKS); 40 s,
+# not 75 s: the chip budget's cut 6 (ROADMAP.md, section C)
+WIRE_MIN_CHUNKS, WIRE_PREP_S, WIRE_SAMPLE, WIRE_ROUNDS = 2, 40.0, 64, 2
 # the wire loop's runs over every chunk: (label, overlap, codec team)
 WIRE_RUNS = (("overlapped", True, "all"), ("serial", False, "all"),
              ("overlapped, half team", True, "half"), ("serial", False, "all"),
@@ -3037,6 +3059,199 @@ GOSSIP_MODES = ("frontier", "ryw", "monotonic", "eventual", "ryw", "monotonic", 
 GOSSIP_POLICY = dict(send_deadline_s=60.0, recv_deadline_s=60.0, ack_timeout_s=0.1,
                      max_backoff_s=2.0, retry_budget=256, window=16)
 GOSSIP_BUSY_S, GOSSIP_JOIN_S = 30.0, 180.0
+# the telemetry plane: each node publishes into its own registry, gossips a
+# FleetObservatory and serves an exporter on 127.0.0.1:0; after every round
+# the main thread scrapes these routes of every node (and one unknown
+# route, which must answer 404); one idle round after convergence runs
+# under tracing.profile into GOSSIP_PROFILE_DIR (removed at the end)
+GOSSIP_ROUTES = ("/metrics", "/events?kind=sync", "/fleet?format=json", "/kernels",
+                 "/stability", "/heat?plan=mesh:8", "/healthz")
+GOSSIP_PROFILE_DIR = os.path.join("build", "chip_smoke_profile_13")
+
+
+def prom_name_patterns() -> dict:
+    """kind -> the compiled patterns of every Prometheus family name the
+    port's publisher can render (``*`` segments as identifiers)."""
+    from crdt_tpu_torch.obs import metrics, publish
+
+    out = {}
+    for pattern, kind in publish.names():
+        body = "[A-Za-z0-9_]+".join(re.escape(metrics.sanitize(p)) for p in pattern.split("*"))
+        suffix = "_total" if kind == "counter" else ""
+        out.setdefault(kind, []).append(re.compile(f"{metrics.PROM_PREFIX}_{body}{suffix}"))
+    return out
+
+
+def parse_prom(text: str, patterns: dict, what: str) -> dict:
+    """Every line of a text exposition parsed: ``# TYPE`` lines name
+    families the publisher's table can render, sample lines belong to a
+    declared family (a histogram's ``_bucket``/``_sum``/``_count``) and
+    carry a number.  Returns ``{sample name with labels: value}``."""
+    kinds, samples = {}, {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ")
+            if not any(p.fullmatch(name) for p in patterns.get(kind, ())):
+                raise AssertionError(f"{what}: family {name} ({kind}) is not in the name table")
+            kinds[name] = kind
+            continue
+        name, value = line.rsplit(" ", 1)
+        base = name.split("{", 1)[0]
+        if base not in kinds and not any(
+                base == f + sfx and kinds[f] == "histogram" for f in kinds
+                for sfx in ("_bucket", "_sum", "_count")):
+            raise AssertionError(f"{what}: sample {line!r} of no declared family")
+        samples[name] = float(value.replace("+Inf", "inf").replace("-Inf", "-inf"))
+    return samples
+
+
+def http_get(server, path: str) -> tuple:
+    """``(status, body text, ms)`` of one GET against an exporter."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{server.port}{path}", timeout=60) as r:
+            status, body = r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read().decode()
+    return status, body, (time.perf_counter() - t0) * 1e3
+
+
+def gossip_scrape(fleet, patterns: dict, route_ms: dict, exact: bool, k2_calls: int) -> list:
+    """Scrape every route of every node's exporter and check it: each
+    answers 200 and an unknown route 404; ``/metrics`` and ``/kernels``
+    parse and name only table families; ``/kernels``' merge-kernel calls
+    equal ``launch_counts()`` read before and after, and ``k2_calls``, the
+    launches the wrapper capture saw since the counts were reset (an
+    independent count); ``/healthz``' reads
+    lie between the node's ``ServeLoop.counts()`` before and after (equal
+    to it when ``exact``: the reader stopped).  Returns each node's
+    ``/fleet?format=json`` body."""
+    from crdt_tpu_torch import _build
+
+    fleets = []
+    for m in fleet:
+        before = (_build.launch_counts()["orswot_merge"], m.node.serve_loop().counts())
+        bodies = {}
+        for route in GOSSIP_ROUTES:
+            status, body, ms = http_get(m.server, route)
+            route_ms.setdefault(route.split("?")[0], []).append(ms)
+            if status != 200:
+                raise AssertionError(f"{m.name} {route}: HTTP {status}: {body[:300]}")
+            bodies[route] = body
+        after = (_build.launch_counts()["orswot_merge"], m.node.serve_loop().counts())
+        status, body, _ = http_get(m.server, "/no-such-route")
+        if status != 404 or not body.startswith("not found"):
+            raise AssertionError(f"{m.name}: an unknown route answered {status}")
+        parse_prom(bodies["/metrics"], patterns, f"{m.name} /metrics")
+        kern = parse_prom(bodies["/kernels"], patterns, f"{m.name} /kernels")
+        calls = kern.get("crdt_tpu_kernel_orswot_merge_calls_total")
+        if not before[0] == calls == after[0] == k2_calls:
+            raise AssertionError(f"{m.name} /kernels: orswot_merge calls {calls}, launch_counts "
+                                 f"{before[0]} before and {after[0]} after, {k2_calls} launches "
+                                 f"captured")
+        reads = json.loads(bodies["/healthz"])["serve"]["reads"]
+        lo, hi = before[1]["reads"], after[1]["reads"]
+        if not lo <= reads <= hi or (exact and not lo == reads == hi):
+            raise AssertionError(f"{m.name} /healthz: serve reads {reads}, ServeLoop.counts() "
+                                 f"{lo} before and {hi} after")
+        m.last_bodies = bodies
+        fleets.append(json.loads(bodies["/fleet?format=json"]))
+    return fleets
+
+
+def gossip_fleet_checks(fleet, fleets: list, card: str) -> dict:
+    """The telemetry plane after the reader stopped: every node's
+    ``/fleet`` lists the three nodes, its own slice carries its scheduler's
+    counts, and the fleet counter of the schedulers' session legs is the
+    sum of the slices'; the fleet-merged hot list of a fresh capture of
+    each node agrees in ``(obj, count)`` with ``merge_hot`` of the nodes'
+    sketches, and each node's ``/heat?plan=mesh:8`` report equals
+    ``score_plan`` of its heat vector.  Returns the merged snapshot's bytes
+    and nodes."""
+    from crdt_tpu_torch.obs import heat as heat_mod
+    from crdt_tpu_torch.obs.fleet import FleetSnapshot, encode_snapshot
+
+    names = [m.name for m in fleet]
+    for m, view in zip(fleet, fleets):
+        if view["nodes"] != names:
+            raise AssertionError(f"{m.name} /fleet lists {view['nodes']}, not {names}")
+        own = view["slices"][m.name]["counters"]
+        sched = m.sched.counts()
+        if (own.get("cluster.sessions.ok"), own.get("cluster.rounds")) != \
+                (sched["sessions_ok"], sched["rounds"]):
+            raise AssertionError(f"{m.name}: its slice's scheduler counts differ from {sched}")
+        legs = sum(sl["counters"].get("cluster.sessions.ok", 0) for sl in view["slices"].values())
+        if view["fleet"]["counters"].get("cluster.sessions.ok") != legs:
+            raise AssertionError(f"{m.name} /fleet: the fleet's session legs are not the sum of "
+                                 f"its slices'")
+        report = json.loads(m.last_bodies["/heat?plan=mesh:8"])["report"]
+        layout = m.node.heat.snapshot()["layout"]
+        want = heat_mod.score_plan("mesh:8", m.node.heat.heat_vector(),
+                                   n=max(layout["objects"], 1), span=layout["span"])
+        if report != json.loads(json.dumps(want)):
+            raise AssertionError(f"{m.name} /heat?plan=mesh:8 differs from score_plan")
+    snap = FleetSnapshot()
+    for m in fleet:
+        m.node.heat.publish()
+        snap = snap.merge(m.observatory.capture())
+    got = [(h["obj"], h["count"]) for h in snap.fleet_heat()["hot"]]
+    want = [(h["obj"], h["count"]) for h in heat_mod.merge_hot([m.node.heat.hot()
+                                                                for m in fleet])]
+    if not got or got != want:
+        raise AssertionError(f"fleet_heat's hot list {got[:4]}... differs from merge_hot's "
+                             f"{want[:4]}...")
+    frame = encode_snapshot(snap)
+    log(f"  telemetry: every node's /fleet lists {names}; fleet session legs == the slices' "
+        f"sum; fleet_heat == merge_hot on {len(got)} objects; /heat?plan=mesh:8 == score_plan; "
+        f"merged snapshot {len(frame)} B of {len(snap.slices)} nodes [{card}]")
+    return {"bytes": len(frame), "nodes": len(snap.slices), "hot_objects": len(got)}
+
+
+def profiled_round(fleet, r: int, card: str) -> tuple:
+    """One more fleet round, its first scheduler's round (that node's two
+    legs, and their acceptors' on the peers) under ``tracing.profile``:
+    the record, and the device's busy share of that scheduler round's wall
+    (the kernels' device time over the wall).  A profiler that did not
+    start or stop, wrote no trace or saw no device time fails the phase.
+    The busy time is summed over the profiler's raw device events:
+    ``key_averages()`` builds an object per event, far slower for a
+    round's ~10^5 kernels and their host ops."""
+    import shutil
+
+    from torch.autograd import DeviceType
+
+    from crdt_tpu_torch.obs import events
+    from crdt_tpu_torch.utils import tracing
+
+    unavailable = tracing.unavailable_count()
+    try:
+        x = gossip_round(fleet, r, profile_dir=GOSSIP_PROFILE_DIR)
+        prof, wall = x.pop("profile")
+        if prof is None or tracing.unavailable_count() != unavailable:
+            failed = events.recorder().snapshot("obs.profiler_unavailable")
+            raise AssertionError(f"the profiler failed in round {r}: "
+                                 f"{failed[-1]['fields'] if failed else 'it yielded None'}")
+        trace = sum(os.path.getsize(os.path.join(GOSSIP_PROFILE_DIR, f))
+                    for f in os.listdir(GOSSIP_PROFILE_DIR))
+        device = [e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA]
+        busy = sum(e.duration_ns() for e in device) / 1e6
+    finally:
+        shutil.rmtree(GOSSIP_PROFILE_DIR, ignore_errors=True)
+    if not trace or not device or busy <= 0:
+        raise AssertionError(f"the profiled round {r} recorded {len(device)} device events, "
+                             f"{busy} ms busy, {trace} B of trace")
+    out = {"node": fleet[0].name, "wall_s": wall, "fleet_round_wall_s": x["wall_s"],
+           "busy_ms": busy, "busy_share": busy / (wall * 1e3), "kernels": len(device),
+           "trace_bytes": trace}
+    log(f"  profiled idle round {r}: {fleet[0].name}'s scheduler round {wall:.3f} s wall (the "
+        f"fleet round {x['wall_s']:.3f} s), device busy {out['busy_ms']} ms (share "
+        f"{out['busy_share']}), {out['kernels']} device events, {out['trace_bytes']} B of "
+        f"trace, diverged {x['diverged']} [{card}]")
+    return x, out
 
 
 class GossipMember:
@@ -3228,22 +3443,31 @@ def gossip_writes(member, wobj, rng, kept):
     return secs, ack, obj, mem
 
 
-def gossip_round(fleet, r: int) -> dict:
+def gossip_round(fleet, r: int, profile_dir=None) -> dict:
     """One fleet round: each scheduler's ``run_round`` in turn.  Returns the
     round's record: wall seconds, each session leg's report (dialed and
     accepted), each scheduler's health view, the failed legs, and the
     refusals by a node's busy bound with the failures they caused (a
     refused dial's other leg fails with a transport error; that is the
-    bound's designed behaviour, counted apart)."""
+    bound's designed behaviour, counted apart).  With ``profile_dir`` the
+    first scheduler's round runs under ``tracing.profile``: the record's
+    ``profile`` is ``(profiler or None, that round's wall seconds)``."""
     from crdt_tpu_torch.obs import events
+    from crdt_tpu_torch.utils import tracing
 
     marks = [len(m.inbound) for m in fleet]
     t0 = time.perf_counter()
-    reports, failed, busy, health = [], [], set(), {}
+    reports, failed, busy, health, profiled = [], [], set(), {}, None
     for m in fleet:
         seen = events.recorder().snapshot()
         mark = seen[-1]["seq"] if seen else 0
-        rep = m.sched.run_round()
+        if profile_dir is not None and profiled is None:
+            with tracing.profile(profile_dir) as prof:
+                t_prof = time.perf_counter()
+                rep = m.sched.run_round()
+                profiled = (prof, time.perf_counter() - t_prof)
+        else:
+            rep = m.sched.run_round()
         health[m.name] = rep.health
         reports += [(m.name, peer, "dial", x) for peer, x in rep.reports.items()]
         for e in events.recorder().snapshot("cluster.session"):
@@ -3263,7 +3487,7 @@ def gossip_round(fleet, r: int) -> dict:
     refused = [f for f in failed if (f[0], f[1]) in busy]
     return {"round": r, "wall_s": wall, "reports": reports, "health": health,
             "failed": [f for f in failed if (f[0], f[1]) not in busy], "busy": refused,
-            "diverged": sum(x[3].diverged for x in reports)}
+            "diverged": sum(x[3].diverged for x in reports), "profile": profiled}
 
 
 def gossip_checks(fleet, start_host, kept, written, k2, dev, card: str):
@@ -3335,8 +3559,13 @@ def gossip_phase(dev, card: str, start):
     from crdt_tpu_torch import CrdtConfig, OrswotBatch, Universe, _build, kernel_observatory
     from crdt_tpu_torch.serve import ReadRequest, encode_read_request, visible_vv
 
+    from crdt_tpu_torch.obs import CapacityTracker, FleetObservatory, MetricsRegistry
+    from crdt_tpu_torch.obs import convergence as obs_convergence
+    from crdt_tpu_torch.obs.export import start_metrics_server
+
     t_phase = time.perf_counter()
     rng = np.random.RandomState(SEED + 13)
+    patterns, route_ms, servers, profiled = prom_name_patterns(), {}, [], None
     rep = {"card": card, "objects": N_TOTAL, "shape": [A, M, D], "nodes": GOSSIP_NODES,
            "fleet": "phase 12's replica P and two copies", "policy": GOSSIP_POLICY,
            "writes_per_round": GOSSIP_WRITES, "write_rounds": GOSSIP_WRITE_ROUNDS,
@@ -3356,17 +3585,27 @@ def gossip_phase(dev, card: str, start):
             for i in range(GOSSIP_NODES):
                 batch = start if i == 0 else OrswotBatch(*(getattr(start, k).clone()
                                                            for k in PLANES))
-                fleet.append(GossipMember(i, batch, uni))
+                reg = MetricsRegistry()
+                fleet.append(GossipMember(i, batch, uni, registry=reg,
+                                          observatory=FleetObservatory(f"n{i}", registry=reg),
+                                          capacity_tracker=CapacityTracker(device=dev)))
             del start, batch
             for m in fleet:
                 m.scheduler(fleet)
                 m.node.serve_loop().park_timeout_s = GOSSIP_PARK_S
+                m.observatory = m.node.observatory
+                m.server = start_metrics_server(
+                    port=0, registry=m.node.registry, tracker=obs_convergence.tracker(),
+                    observatory=m.observatory, capacity=m.node.capacity_tracker,
+                    stability=m.node.stability, heat=m.node.heat)
+                servers.append(m.server)
             torch.cuda.synchronize()
             rep["build_s"] = time.perf_counter() - t_phase
             reader = GossipReader(fleet, robj, rmember)
             obs = kernel_observatory()
             obs.reset()
             _build.reset_launch_counts()
+            k2_mark = len(k2.seen)
             obs.set_enabled(True)
             t_rounds = time.perf_counter()
             reader.thread.start()
@@ -3402,8 +3641,18 @@ def gossip_phase(dev, card: str, start):
                         f"wall s, kernel s, network s): {legs} [{card}]")
                     if x["failed"]:
                         raise AssertionError(f"round {r}: failed session legs {x['failed']}")
+                    gossip_scrape(fleet, patterns, route_ms, exact=False,
+                                  k2_calls=len(k2.seen) - k2_mark)
                     if x["digests_equal"]:
                         break
+                if rounds[-1]["digests_equal"]:
+                    # one more round, idle, under the profiler
+                    x, profiled = profiled_round(fleet, len(rounds) + 1, card)
+                    x["digests_equal"] = None
+                    rounds.append(x)
+                    if x["failed"] or x["diverged"]:
+                        raise AssertionError(f"the profiled idle round: failed {x['failed']}, "
+                                             f"diverged {x['diverged']}")
             finally:
                 reader.stop.set()
                 reader.thread.join(timeout=GOSSIP_JOIN_S)
@@ -3416,8 +3665,11 @@ def gossip_phase(dev, card: str, start):
                 raise AssertionError("the reader thread hung")
             if reader.errors:
                 raise reader.errors[0]
-            if not rounds[-1]["digests_equal"]:
+            if profiled is None:
                 raise AssertionError(f"no convergence in {len(rounds)} rounds")
+            fleets = gossip_scrape(fleet, patterns, route_ms, exact=True,
+                                   k2_calls=len(k2.seen) - k2_mark)
+            rep["fleet_snapshot"] = gossip_fleet_checks(fleet, fleets, card)
             if launches == 0 or len(k2.seen) != launches:
                 raise AssertionError(f"the merge kernel launched {launches} times in the phase, "
                                      f"{len(k2.seen)} captured")
@@ -3448,8 +3700,11 @@ def gossip_phase(dev, card: str, start):
                 f"{rep['visible_vv_ms']['wall']:.4f} ms wall (mean of 10; bytes bound "
                 f"{rep['visible_vv_ms']['bound']:.4f} ms) [{card}]")
             rep["scheduler_counts"] = {m.name: m.sched.counts() for m in fleet}
+            obs_counts = {m.name: m.observatory.counts() for m in fleet}
             gossip_checks(fleet, start_host, kept, np.concatenate(written), k2, dev, card)
         finally:
+            for server in servers:
+                server.stop()
             for m in fleet:
                 m.close()
 
@@ -3459,6 +3714,7 @@ def gossip_phase(dev, card: str, start):
     stage = {k: sum(c["stage_s"][k] for c in calls) for k in ("decode", "serve", "encode")}
     sessions = [{"round": x["round"], "node": node, "peer": peer, "leg": leg,
                  "diverged": r.diverged, "tree": r.tree_mode, "wall_s": r.profile.wall_ns / 1e9,
+                 "fleet_bytes_sent": r.fleet_bytes_sent, "fleet_nodes": r.fleet_nodes,
                  "split_s": {c: getattr(r.profile, f"{c}_ns") / 1e9 for c in
                              ("serialize", "network", "kernel", "other", "unaccounted")},
                  "bytes_sent": r.bytes_sent}
@@ -3479,7 +3735,23 @@ def gossip_phase(dev, card: str, start):
         ryw_probed=reader.ryw_checked, parked=parked, rejected=rejected,
         park_wait_s=sum(c["park_wait_s"] for c in counts),
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    leg_wall = sum(s["wall_s"] for s in sessions)
+    obs_s = {k: sum(c[k] for c in obs_counts.values()) for k in ("encode_s", "merge_s")}
+    rep["observatory"] = {
+        "per_node": {n: {k: c[k] for k in ("encodes", "encode_s", "decoded", "merge_s", "merges",
+                                           "nodes", "rejected")} for n, c in obs_counts.items()},
+        **obs_s, "share_of_leg_walls": (obs_s["encode_s"] + obs_s["merge_s"]) / leg_wall,
+        "fleet_bytes_per_leg": [s["fleet_bytes_sent"] for s in sessions]}
+    rep["scrape_ms"] = {route: {"p50": float(np.median(ms)), "max": max(ms), "n": len(ms)}
+                        for route, ms in route_ms.items()}
+    rep["profiled_round"] = profiled
     rep["phase_s"] = time.perf_counter() - t_phase
+    fleet_bytes = rep["observatory"]["fleet_bytes_per_leg"]
+    scrape = {r: (round(v["p50"], 2), round(v["max"], 2)) for r, v in rep["scrape_ms"].items()}
+    log(f"  telemetry: FLEET frames {min(fleet_bytes)}-{max(fleet_bytes)} B per leg; the "
+        f"observatories' encode {obs_s['encode_s']:.3f} s and merge {obs_s['merge_s']:.3f} s, "
+        f"{100 * rep['observatory']['share_of_leg_walls']:.2f}% of the legs' walls; scrape ms "
+        f"(p50, max) {scrape} [{card}]")
     walls = [round(s["wall_s"], 3) for s in sessions if s["diverged"]]
     log(f"  {len(rounds)} rounds in {rounds_s:.3f} s ({[round(w, 3) for w in rep['round_wall_s']]}"
         f" s); session legs ok per round {rep['sessions_ok']}, failed {rep['sessions_failed']}, "

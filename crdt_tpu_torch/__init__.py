@@ -26,7 +26,11 @@ the read front-end (``serve/``: :func:`gather` and :class:`QueryEngine`,
 ``ReadCtx`` rows for every kind, consistency admission, the read frames
 and the :class:`ServeLoop` a node answers them through) and its
 observatories (``obs/``: :class:`StabilityTracker`, :class:`HeatTracker`,
-:class:`CapacityTracker`, :func:`kernel_observatory`).
+:class:`CapacityTracker`, :func:`kernel_observatory`), and the telemetry
+plane over them: each node's :class:`MetricsRegistry`, filled from its
+counts at read time, the :class:`FleetObservatory` its sessions gossip,
+and :func:`start_metrics_server` (``/metrics``, ``/events``, ``/fleet``,
+``/kernels``, ``/stability``, ``/heat``, ``/healthz``).
 The scalar engine (``scalar/``) and the serde codec (``utils/serde.py``)
 are the port's own copies.  Entry points take
 ``device=`` and default to ``"cuda"``; pass ``device="cpu"`` to run the
@@ -94,7 +98,10 @@ from .error import (
     WireFormatError,
 )
 from .gc import FleetWatermark, GcEngine, GcPolicy, GcReport, WatermarkReport
-from .obs import CapacityTracker, HeatTracker, StabilityTracker, kernel_observatory
+from .obs import (
+    CapacityTracker, FleetObservatory, FleetSnapshot, HeatTracker, MetricsRegistry,
+    StabilityTracker, kernel_observatory, start_metrics_server,
+)
 from .parallel import JoinError, JoinExecutor, JoinStats, join_all
 from .serve import QueryEngine, ReadRequest, ResultFrame, ServeLoop, gather
 from .sync import (
@@ -115,6 +122,8 @@ __all__ = [
     "DeviceUnavailableError",
     "DigestTree",
     "DurabilityError",
+    "FleetObservatory",
+    "FleetSnapshot",
     "FleetWatermark",
     "GCounterBatch",
     "GcEngine",
@@ -134,6 +143,7 @@ __all__ = [
     "MapKernel",
     "MVRegBatch",
     "MVRegKernel",
+    "MetricsRegistry",
     "OpLogOverflowError",
     "OrswotBatch",
     "OrswotDeltaApplier",
@@ -168,6 +178,7 @@ __all__ = [
     "kernel_observatory",
     "queue_transport",
     "resolve_device",
+    "start_metrics_server",
     "sync_pair",
     "version_vector",
 ]

@@ -22,6 +22,12 @@ runs GC when due, and then the node's checkpoint when due.  The JAX
 package's ``cluster.*`` counters are :meth:`GossipScheduler.counts`, and
 its ``cluster.gossip.*`` gauges the ``health`` dict of each
 :class:`RoundReport`.
+
+Each node has its own metrics registry (:attr:`ClusterNode.registry`):
+at every read (a scrape of its exporter, a capture of its fleet
+observatory) the node's counts, its trackers', its links' and its
+scheduler's are published into it under the JAX package's names
+(:mod:`~crdt_tpu_torch.obs.publish`).
 """
 
 from __future__ import annotations
@@ -40,6 +46,8 @@ from ..dtypes import as_counters, counters_to_numpy
 from ..error import PeerUnavailableError, SyncProtocolError, TransportError
 from ..obs import convergence as obs_convergence
 from ..obs import events as obs_events
+from ..obs import publish as obs_publish
+from ..obs.metrics import Histogram, MetricsRegistry
 from ..sync.session import SyncReport, SyncSession
 from . import faults as faults_mod
 from . import membership as membership_mod
@@ -74,12 +82,16 @@ class ClusterNode:
     to one retried session, not a deadlock.  The lag, stability and heat
     trackers are private per node by default (the heat sketch on the
     batch's device); ``observatory`` is passed through to every session.
+    ``registry`` is the :class:`~crdt_tpu_torch.obs.metrics.
+    MetricsRegistry` the node publishes into at read time (a new one by
+    default; pass the one its fleet observatory and exporter read).
     """
 
     def __init__(self, node_id: str, batch, universe, *, full_state_threshold: float = 0.5,
                  busy_timeout_s: float = 10.0, observatory=None, oplog=None,
                  capacity_tracker=None, gc=None, digest_tree: bool = False, durability=None,
-                 applier=None, lag_tracker=None, stability_tracker=None, heat_tracker=None):
+                 applier=None, lag_tracker=None, stability_tracker=None, heat_tracker=None,
+                 registry=None):
         from ..obs import heat as obs_heat
         from ..obs import latency as obs_latency
         from ..obs import stability as obs_stability
@@ -111,6 +123,10 @@ class ClusterNode:
         self._last_report: Optional[SyncReport] = None
         self._last_gc_report = None
         self._serve_loop = None          # built by the first serve_reads
+        self.links = obs_publish.LinkTally()
+        self.registry = registry if registry is not None else MetricsRegistry()
+        # a weak reference: the registry must not keep the node's fleet alive
+        self.registry.add_source(obs_publish.node_source(weakref.ref(self)))
 
     @property
     def batch(self):
@@ -314,6 +330,7 @@ class ClusterNode:
                 f">{self.busy_timeout_s:.1f}s, refusing session with {peer_label}")
         faults_mod.crash_point("cluster.session")
         faults_mod.crash_point(f"cluster.session.{self.node_id}")
+        self.links.watch(transport)
         try:
             op_hooks = {}
             if self._oplog is not None:
@@ -504,14 +521,27 @@ class GossipScheduler:
         self._round_no = 0
         self._counts = dict.fromkeys(("rounds", "sessions_ok", "sessions_failed",
                                       "sessions_skipped_busy"), 0)
+        self._round_walls = Histogram()
+        self._last_health: Optional[Dict[str, int]] = None
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        node.registry.add_source(obs_publish.scheduler_source(weakref.ref(self)))
 
     def counts(self) -> dict:
         """Rounds run, and sessions that succeeded, failed and were skipped
         because their endpoint was busy."""
         with self._lock:
             return dict(self._counts)
+
+    def round_walls(self) -> Histogram:
+        """The rounds' wall seconds (log2 buckets)."""
+        with self._lock:
+            return self._round_walls.copy()
+
+    def last_health(self) -> Optional[Dict[str, int]]:
+        """The last round's ``health`` (None before a round)."""
+        with self._lock:
+            return None if self._last_health is None else dict(self._last_health)
 
     def _tally(self, key: str) -> None:
         with self._lock:
@@ -615,6 +645,9 @@ class GossipScheduler:
         # holds every write meanwhile)
         if self.node.durability is not None and self.node.durability.due(round_no):
             self.node.checkpoint()
+        with self._lock:
+            self._last_health = dict(report.health)
+            self._round_walls.observe(time.monotonic() - round_t0)
         return report
 
     def _round_health(self, report: RoundReport) -> Dict[str, int]:

@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 #: watermark states, in severity order (the overall state is the max)
 WATERMARK_STATES = ("ok", "warn", "critical")
@@ -87,6 +87,10 @@ class CapacityTracker:
         self._clock = clock
         self._lock = threading.Lock()
         self._planes: Dict[str, PlaneCapacity] = {}
+        self._samples = 0
+        self._growth_seen: set = set()  # labels whose growth rate was ever set
+        self._devicemem: Optional[dict] = None
+        self._devicemem_samples = 0
 
     def sample(self, batch, label: Optional[str] = None, *, ceiling: Optional[int] = None):
         """Measure ``batch``'s planes (one reduction where they live, one
@@ -112,7 +116,12 @@ class CapacityTracker:
         bytes (:func:`crdt_tpu_torch.obs.kernels.sample_device_memory`)."""
         from .kernels import sample_device_memory
 
-        return sample_device_memory(self.device, tracker=self)
+        out = sample_device_memory(self.device, tracker=self)
+        if out is not None:
+            with self._lock:
+                self._devicemem = out
+                self._devicemem_samples += 1
+        return out
 
     def observe(self, occ: Occupancy, label: Optional[str] = None, *,
                 ceiling: Optional[int] = None) -> Occupancy:
@@ -129,7 +138,8 @@ class CapacityTracker:
         with self._lock:
             prev = self._planes.get(label)
             rate = prev.rate if prev is not None else None
-            if prev is not None and prev.occupancy.slot_capacity != occ.slot_capacity:
+            changed = prev is not None and prev.occupancy.slot_capacity != occ.slot_capacity
+            if changed:
                 # re-packed or regrown between samples: re-seed the rate
                 rate, prev = None, None
             if prev is not None and now > prev.sampled_at:
@@ -147,6 +157,9 @@ class CapacityTracker:
                 "warn" if util >= self.warn_frac else "ok"
             self._planes[label] = PlaneCapacity(occupancy=occ, ceiling=ceiling, rate=rate,
                                                 eta_s=eta, state=state, sampled_at=now)
+            self._samples += 1
+            if rate is not None or changed:
+                self._growth_seen.add(label)
         return occ
 
     def watermark(self) -> dict:
@@ -170,9 +183,40 @@ class CapacityTracker:
         with self._lock:
             return dict(self._planes)
 
+    def published(self) -> dict:
+        """The gauges' view: the ``planes``, the ``samples`` folded, the
+        labels whose growth rate was ever set (``growth_seen``: a plane
+        whose rate re-seeds reads 0, not a stale rate) and the newest
+        device-memory sample with the count of them."""
+        with self._lock:
+            return {"planes": dict(self._planes), "samples": self._samples,
+                    "growth_seen": set(self._growth_seen), "devicemem": self._devicemem,
+                    "devicemem_samples": self._devicemem_samples}
+
     def reset(self) -> None:
         with self._lock:
             self._planes.clear()
+            self._samples = self._devicemem_samples = 0
+            self._growth_seen = set()
+            self._devicemem = None
+
+    def regrow_timeline(self, recorder=None) -> List[dict]:
+        """The executor's capacity regrows in order: every
+        ``executor.regrow`` flight-recorder event with its schedule and
+        its before/after member and deferred capacities."""
+        from . import events as events_mod
+
+        rec = recorder if recorder is not None else events_mod.recorder()
+        out = []
+        for ev in rec.snapshot(kind="executor.regrow"):
+            f = ev.get("fields", {})
+            out.append({"mono_ts": ev["mono_ts"], "wall_ts": ev["wall_ts"],
+                        "schedule": f.get("schedule"),
+                        "member_capacity": (f.get("member_capacity_before"),
+                                            f.get("member_capacity")),
+                        "deferred_capacity": (f.get("deferred_capacity_before"),
+                                              f.get("deferred_capacity"))})
+        return out
 
 
 def _buffer_occupancy(kind: str, o: dict) -> Occupancy:

@@ -4,7 +4,8 @@
 fleet watermark reads, ``snapshot``, ``refresh`` and ``urgency``, the
 gossip scheduler's ranking key).  The JAX tracker mirrors each field into
 a registry gauge; here they are plain fields of
-:meth:`ConvergenceTracker.snapshot`."""
+:meth:`ConvergenceTracker.snapshot`, and :meth:`ConvergenceTracker.
+published_leaves` says which of them the JAX tracker would have set."""
 
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ class _PeerState:
     __slots__ = ("divergence", "objects", "rounds_to_converge", "sessions",
                  "converged_sessions", "last_converged_ts", "delta_ratios",
                  "divergence_resolved", "version_vector", "version_vector_ts",
-                 "diverged_subtrees")
+                 "diverged_subtrees", "leaves")
 
     def __init__(self):
         self.divergence = 0
@@ -39,6 +40,7 @@ class _PeerState:
         self.divergence_resolved = True    # a converged session resolved `divergence`
         self.version_vector: Optional[tuple] = None
         self.version_vector_ts: Optional[float] = None
+        self.leaves: set = set()           # the JAX gauges an observation has set
 
 
 class ConvergenceTracker:
@@ -60,7 +62,9 @@ class ConvergenceTracker:
         left as it is."""
         with self._lock:
             if peer not in self._peers:
-                self._state(peer).divergence = UNKNOWN_DIVERGENCE
+                st = self._state(peer)
+                st.divergence = UNKNOWN_DIVERGENCE
+                st.leaves |= {"staleness_s", "divergence", "divergence_frac"}
 
     def observe_divergence(self, peer: str, diverged: int, objects: int) -> None:
         """One digest exchange against ``peer``: ``diverged`` of
@@ -70,6 +74,7 @@ class ConvergenceTracker:
             st.divergence = int(diverged)
             st.objects = int(objects)
             st.divergence_resolved = diverged == 0
+            st.leaves |= {"divergence", "divergence_frac"}
 
     def observe_session(self, peer: str, *, converged: bool, rounds: int,
                         payload_bytes: int = 0, full_state_bytes: Optional[int] = None) -> None:
@@ -85,11 +90,17 @@ class ConvergenceTracker:
                 st.divergence_resolved = True
             if full_state_bytes:
                 st.delta_ratios.append(payload_bytes / full_state_bytes)
+                st.leaves.add("delta_ratio")
+            st.leaves.add("rounds_to_converge")
+            if converged:
+                st.leaves.add("staleness_s")
 
     def observe_tree(self, peer: str, subtrees: int) -> None:
         """One tree descent's widest diverged frontier against ``peer``."""
         with self._lock:
-            self._state(peer).diverged_subtrees = int(subtrees)
+            st = self._state(peer)
+            st.diverged_subtrees = int(subtrees)
+            st.leaves.add("diverged_subtrees")
 
     def observe_version_vector(self, peer: str, vv, at: Optional[float] = None) -> None:
         """Cache ``peer``'s version vector from a digest exchange (any
@@ -126,6 +137,13 @@ class ConvergenceTracker:
                                 else now - st.last_converged_ts),
                 "delta_ratio_history": list(st.delta_ratios)}
                 for peer, st in self._peers.items()}
+
+    def published_leaves(self) -> Dict[str, tuple]:
+        """Per peer, the :meth:`snapshot` fields the JAX tracker would have
+        set as ``sync.peer.<peer>.<field>`` gauges by now (``delta_ratio``
+        is the newest of ``delta_ratio_history``)."""
+        with self._lock:
+            return {peer: tuple(sorted(st.leaves)) for peer, st in self._peers.items()}
 
     def refresh(self) -> Dict[str, float]:
         """``{peer: seconds since its last converged session}`` for every

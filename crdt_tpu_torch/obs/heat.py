@@ -1,7 +1,8 @@
 """Heat and placement: per-subtree traffic attribution, a Space-Saving
 top-k sketch on the device, and a shard/ring placement planner (the port
-of the JAX package's ``obs/heat.py``; its counters and gauges are fields
-of :meth:`HeatTracker.snapshot` here).
+of the JAX package's ``obs/heat.py``; its counters are
+:meth:`HeatTracker.counts` here, and its gauges :meth:`HeatTracker.published`,
+which :mod:`~crdt_tpu_torch.obs.publish` renders under the JAX names).
 
 Every read, write and repair batch folds into per-subtree counters
 aligned to :func:`~crdt_tpu_torch.obs.stability.subtree_layout` (a
@@ -272,6 +273,7 @@ class HeatTracker:
         self._sketch = None  # (ids, counts, errs) on the device
         self._updates = 0
         self._last_publish = None  # (t, {cls: totals copy})
+        self._published = None     # the gauges' view at the last publish
 
     def record_reads(self, obj_ids, n: int, mode: str = "eventual"):
         """One served read batch's object ids, under ``mode``."""
@@ -342,7 +344,10 @@ class HeatTracker:
 
     def publish(self):
         """Refresh the EWMA rates (half-life ``halflife_s``; the first
-        publish seeds them with the lifetime mean rate)."""
+        publish seeds them with the lifetime mean rate) and record the
+        gauges' view: the rates, the top :data:`HOT_RANKS` hot objects
+        (a rank once published keeps its last value) and the Zipf fit (a
+        fit that fails keeps the last one)."""
         with self._lock:
             if self._n == 0:
                 return
@@ -358,6 +363,30 @@ class HeatTracker:
                 self._ewma = {c: alpha * ((totals[c] - prev[c]) / dt)
                               + (1.0 - alpha) * self._ewma[c] for c in CLASSES}
             self._last_publish = (now, totals)
+            hot = self._decode_hot_locked()
+            prior = self._published or {"hot": {}, "zipf": None}
+            fit = self._zipf(hot)
+            self._published = {
+                "rates": {c: self._ewma[c].copy() for c in CLASSES},
+                "hot": {**prior["hot"], **{r: (h["obj"], h["count"])
+                                           for r, h in enumerate(hot[:HOT_RANKS])}},
+                "zipf": fit if fit[0] is not None else prior["zipf"]}
+
+    def published(self) -> Optional[dict]:
+        """The gauges as the last :meth:`publish` left them: ``rates``
+        (per class, per subtree), ``hot`` (``{rank: (obj, count)}``) and
+        ``zipf`` (``(s_hat, r2)`` or None); None before a publish."""
+        with self._lock:
+            pub = self._published
+        return None if pub is None else {"rates": pub["rates"], "hot": dict(pub["hot"]),
+                                         "zipf": pub["zipf"]}
+
+    def counts(self) -> dict:
+        """The counters now: per-class ``totals`` per subtree, reads by
+        mode and the update batches folded."""
+        with self._lock:
+            return {"totals": {c: self._totals[c].tolist() for c in self._totals},
+                    "reads_by_mode": dict(self._mode_reads), "updates": self._updates}
 
     def hot(self, k: int = HOT_RANKS) -> List[dict]:
         """Decoded top-k ``{"obj", "count", "err"}`` rows, hottest first."""
@@ -412,7 +441,7 @@ class HeatTracker:
             self._rows = {c: 0 for c in CLASSES}
             self._sketch = None
             self._updates = 0
-            self._last_publish = None
+            self._last_publish = self._published = None
             self._t0 = self._clock()
 
 

@@ -9,7 +9,10 @@ with the bytes the wrapper says the kernel moves.  Nothing synchronizes
 in the launch: :meth:`KernelObservatory.table` waits for the pending
 events and returns, per kernel, the launches (``_build.launch_counts()``),
 device ms (total, mean, max over the timed launches) and the bytes and
-their share of the bytes bound.
+their share of the bytes bound; :meth:`KernelObservatory.publish` writes
+the same table into a registry as ``kernel.<name>.{calls,bytes,wall,gbps}``
+(the JAX package's compile counts, budgets, recompile storms and XLA cost
+analysis have no counterpart here).
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from typing import Dict, List, Optional
 import torch
 
 from .. import _build
+from . import publish as publish_mod
+from .metrics import Histogram
 
 #: HBM rate of an H100 SXM (NVIDIA data sheet), for the bytes bound
 HBM_BYTES_PER_S = 3.35e12
@@ -59,34 +64,54 @@ class KernelObservatory:
 
     def table(self) -> Dict[str, dict]:
         """``{kernel: {launches, timed, device_ms_total, device_ms_mean,
-        device_ms_max, bytes, bound_ms, bound_share}}`` for every kernel
-        of ``_build.KERNELS``."""
+        device_ms_max, bytes, bound_ms, bound_share, gbps}}`` for every
+        kernel of ``_build.KERNELS`` (JSON-ready)."""
+        rows = self._rows()
+        for row in rows.values():
+            del row["wall"]
+        return rows
+
+    def _rows(self) -> Dict[str, dict]:
+        """:meth:`table`'s rows, each with its launches' device seconds
+        as a :class:`~crdt_tpu_torch.obs.metrics.Histogram` under
+        ``wall``."""
         with self._lock:
             pending, self._pending = self._pending, []
             for name, start, end, nbytes in pending:
                 end.synchronize()
                 ms = start.elapsed_time(end)
                 st = self._stats.setdefault(name, {"timed": 0, "ms": 0.0, "max": 0.0,
-                                                   "bytes": 0, "bytes_ms": 0.0})
+                                                   "bytes": 0, "bytes_ms": 0.0,
+                                                   "wall": Histogram()})
                 st["timed"] += 1
+                st["wall"].observe(ms / 1e3)
                 st["ms"] += ms
                 st["max"] = max(st["max"], ms)
                 if nbytes is not None:
                     st["bytes"] += int(nbytes)
                     st["bytes_ms"] += ms
-            stats = {k: dict(v) for k, v in self._stats.items()}
+            stats = {k: {**v, "wall": v["wall"].copy()} for k, v in self._stats.items()}
         counts = _build.launch_counts()
         out = {}
         for name in _build.KERNELS:
-            st = stats.get(name, {"timed": 0, "ms": 0.0, "max": 0.0, "bytes": 0, "bytes_ms": 0.0})
+            st = stats.get(name, {"timed": 0, "ms": 0.0, "max": 0.0, "bytes": 0, "bytes_ms": 0.0,
+                                  "wall": Histogram()})
             bound = st["bytes"] / HBM_BYTES_PER_S * 1e3
             out[name] = {
                 "launches": counts[name], "timed": st["timed"], "device_ms_total": st["ms"],
                 "device_ms_mean": st["ms"] / st["timed"] if st["timed"] else 0.0,
                 "device_ms_max": st["max"], "bytes": st["bytes"], "bound_ms": bound,
                 "bound_share": bound / st["bytes_ms"] if st["bytes_ms"] else None,
+                "wall": st["wall"],
+                "gbps": st["bytes"] / st["bytes_ms"] / 1e6 if st["bytes_ms"] else None,
             }
         return out
+
+    def publish(self, registry) -> None:
+        """Write :meth:`table` into ``registry``: per kernel its launches,
+        the bytes of its timed launches, their device seconds (a log2
+        histogram) and GB/s."""
+        publish_mod.publish_kernels(registry, self._rows())
 
     def reset(self) -> None:
         """Forget the timings (the launch counts are ``_build``'s)."""
@@ -108,7 +133,10 @@ def sample_device_memory(device=None, tracker=None) -> Optional[dict]:
     ``"cuda"``): allocated, reserved and peak bytes, and with a
     :class:`~crdt_tpu_torch.obs.capacity.CapacityTracker` the tracked
     plane bytes and their share of the allocated bytes.  None on a CPU
-    device, which has no allocator statistics."""
+    device, which has no allocator statistics.  A capacity tracker keeps
+    its newest sample, which the publisher writes as the ``devicemem.*``
+    gauges (the allocated bytes are ``live_bytes``; the allocator has no
+    per-dtype split)."""
     from ..device import resolve_device
 
     dev = resolve_device(device)

@@ -1,7 +1,9 @@
 """Where a sync session's time goes, how long a link's round trip is,
 and how stale a peer's writes are (the port of the JAX package's
-``SessionProfile``, ``RttEstimator``, ``LagTracker`` and
-``lag_tracker()`` from ``obs/latency.py``).
+``SessionProfile``, ``RttEstimator`` and ``LagTracker`` from
+``obs/latency.py``; every node owns its lag tracker, and a session
+without one exchanges no lag frames, so the port keeps no process-global
+tracker).
 
 * :class:`SessionProfile` accounts one session's wall time in integer
   nanoseconds: ``serialize`` (encode and decode), ``network`` (blocked
@@ -197,6 +199,7 @@ class LagTracker:
         self._stamps: Dict[int, deque] = {}
         self._peers: Dict[str, _PeerLag] = {}
         self._foreign_dropped = 0
+        self._measured = 0
         self._slo: deque = deque(maxlen=SLO_WINDOW)
 
     # -- origin side -----------------------------------------------------------
@@ -287,6 +290,7 @@ class LagTracker:
                         st.pending[actor] = keep
                     else:
                         del st.pending[actor]
+            self._measured += measured
         return measured
 
     def observe_round(self, converged: bool, wall_s: float) -> float:
@@ -305,9 +309,10 @@ class LagTracker:
     def snapshot(self) -> dict:
         """Per peer: retained samples, their p50 and p99 (seconds), the
         entries still outstanding and the age of the oldest one
-        (``current_s``); the actors stamped, the sidecars dropped as
-        another clock domain's, and the SLO window's length and share of
-        rounds that met the budget (None before a round)."""
+        (``current_s``); the actors stamped, the samples measured in all,
+        the sidecars dropped as another clock domain's, and the SLO
+        window's length and share of rounds that met the budget (None
+        before a round)."""
         now = time.monotonic_ns()
         with self._lock:
             peers = {}
@@ -320,19 +325,7 @@ class LagTracker:
                     "outstanding": sum(len(v) for v in st.pending.values()),
                     "current_s": 0.0 if oldest is None else max(0, now - oldest) / 1e9}
             return {"peers": peers, "stamped_actors": len(self._stamps),
+                    "measured": self._measured,
                     "foreign_sidecars_dropped": self._foreign_dropped,
                     "slo_window": len(self._slo),
                     "slo_converged_frac": sum(self._slo) / len(self._slo) if self._slo else None}
-
-
-_DEFAULT: Optional[LagTracker] = None
-_DEFAULT_LOCK = threading.Lock()
-
-
-def lag_tracker() -> LagTracker:
-    """The process-global lag tracker."""
-    global _DEFAULT
-    with _DEFAULT_LOCK:
-        if _DEFAULT is None:
-            _DEFAULT = LagTracker()
-    return _DEFAULT

@@ -39,9 +39,12 @@ import torch
 
 from ..dtypes import zero_of
 from . import convergence as convergence_mod
+from .metrics import Histogram
 
 #: resolved divergence ages kept for the p50 and max
 RESOLVED_WINDOW = 512
+#: the aging p50/max before any divergence episode resolved
+AGE_UNKNOWN = -1.0
 
 
 def subtree_layout(n: int) -> Tuple[int, int]:
@@ -141,10 +144,11 @@ class AuditReport:
 
 
 class _PeerStability:
-    __slots__ = ("outstanding", "clocks", "converged_ts")
+    __slots__ = ("outstanding", "clocks", "converged_ts", "age_gauge")
 
     def __init__(self):
         self.outstanding: Dict[int, float] = {}   # subtree -> birth time
+        self.age_gauge: Optional[float] = None    # oldest outstanding age at its last observation
         self.clocks: Optional[Tuple[Tuple[int, ...], ...]] = None
         self.converged_ts: Optional[float] = None
 
@@ -190,6 +194,11 @@ class StabilityTracker:
         self._audit_checks = 0
         self._audit_violations = 0
         self._last_violation: Optional[dict] = None
+        # the JAX tracker's gauges, as its event sites would have set them
+        self._age_hist = Histogram()
+        self._aging: Optional[dict] = None
+        self._frontier_gauges: Optional[dict] = None
+        self._audits = 0
 
     def _conv(self) -> convergence_mod.ConvergenceTracker:
         return self._tracker if self._tracker is not None else convergence_mod.tracker()
@@ -208,6 +217,21 @@ class StabilityTracker:
         return [max(0.0, now - st.outstanding.pop(s)) for s in list(st.outstanding)
                 if s not in keep]
 
+    def _aging_view(self, st: _PeerStability) -> tuple:
+        """``(oldest outstanding age of st, the fleet aging view)`` now;
+        the caller holds the lock."""
+        now = self._clock()
+        births = st.outstanding.values()
+        oldest = round(max(0.0, now - min(births)), 6) if births else 0.0
+        window = sorted(self._resolved)
+        if window:
+            mid = window[min(len(window) - 1, max(0, int(round(0.5 * (len(window) - 1)))))]
+            p50, top = round(mid, 6), round(window[-1], 6)
+        else:
+            p50 = top = AGE_UNKNOWN
+        return oldest, {"outstanding": sum(len(p.outstanding) for p in self._peers.values()),
+                        "p50": p50, "max": top}
+
     def observe_descent(self, peer: str, diverged_ids, objects: int,
                         at: Optional[float] = None) -> None:
         """One exchange's diverged rows against ``peer``: new subtrees are
@@ -222,14 +246,21 @@ class StabilityTracker:
             self._resolved_total += len(ages)
             for s in current:
                 st.outstanding.setdefault(s, now)
+            for age in ages:
+                self._age_hist.observe(age)
+            st.age_gauge, self._aging = self._aging_view(st)
 
     def resolve_all(self, peer: str, at: Optional[float] = None) -> None:
         """Resolve every outstanding subtree against ``peer``."""
         now = self._clock() if at is None else at
         with self._lock:
-            ages = self._resolve(self._state(peer), (), now)
+            st = self._state(peer)
+            ages = self._resolve(st, (), now)
             self._resolved.extend(ages)
             self._resolved_total += len(ages)
+            for age in ages:
+                self._age_hist.observe(age)
+            st.age_gauge, self._aging = self._aging_view(st)
 
     def oldest_divergence_age_s(self) -> float:
         """Age of the oldest still-diverged subtree (0 = none)."""
@@ -331,6 +362,12 @@ class StabilityTracker:
         with self._lock:
             self._published = tuple(map(tuple, clocks.tolist()))
             self._published_global = tuple(fleet_min.tolist())
+            self._frontier_gauges = {
+                "peers": report.peers, "stale": report.stale, "unheard": report.unheard,
+                "excluded": report.excluded, "subtrees": subtrees,
+                "age_s": round(report.age_s, 3), "max_counter": int(fleet_min.max(initial=0)),
+                "lag": report.lag,
+                "subtree_max": [int(clocks[s].max(initial=0)) for s in range(subtrees)]}
         return report
 
     def frontier_clock(self):
@@ -380,6 +417,7 @@ class StabilityTracker:
                                       self.audit_sample if sample is None else int(sample))
         self._audit_frontier(batch, report)
         with self._lock:
+            self._audits += 1
             self._audit_checks += report.checks
             self._audit_violations += len(report.violations)
             if report.violations:
@@ -479,8 +517,28 @@ class StabilityTracker:
             "audit": audit,
         }
 
+    def gauges(self) -> dict:
+        """The JAX tracker's registry view, as its event sites left it: the
+        resolved ages (a log2 :class:`~crdt_tpu_torch.obs.metrics.
+        Histogram`) and their count, the aging view at the last aging
+        event (None before one), each peer's oldest outstanding age at its
+        last observation, the last frontier's fields (None before one) and
+        the audit runs, checks and violations."""
+        with self._lock:
+            return {"age_hist": self._age_hist.copy(), "resolved_total": self._resolved_total,
+                    "aging": None if self._aging is None else dict(self._aging),
+                    "peer_age": {p: st.age_gauge for p, st in self._peers.items()
+                                 if st.age_gauge is not None},
+                    "frontier": (None if self._frontier_gauges is None
+                                 else dict(self._frontier_gauges)),
+                    "audit_runs": self._audits, "checks": self._audit_checks,
+                    "violations": self._audit_violations}
+
     def reset(self) -> None:
         with self._lock:
+            self._age_hist = Histogram()
+            self._aging = self._frontier_gauges = None
+            self._audits = 0
             self._peers.clear()
             self._resolved.clear()
             self._resolved_total = 0

@@ -19,7 +19,9 @@ The executor joins a queue of batches into one state — as a left fold,
 or, on CUDA by default, as the type's pairwise-tree reduction with
 recovery at whole-tree granularity — finishing with a defer-plunger
 self-merge so buffered removes flush.  What happened is counted in
-:class:`JoinStats`.
+:class:`JoinStats`, and each regrow and transient retry leaves an
+``executor.regrow`` / ``executor.transient_retry`` flight-recorder event
+(:meth:`~crdt_tpu_torch.obs.capacity.CapacityTracker.regrow_timeline`).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import time
 from typing import Any, Optional, Sequence
 
 from ..error import CapacityOverflowError, KernelError
+from ..obs import events as obs_events
 
 
 @dataclasses.dataclass
@@ -145,6 +148,10 @@ class JoinExecutor:
                 f"(member_capacity={m}, deferred_capacity={d})"
             ) from overflow
         stats.overflow_regrows += 1
+        # before/after stamps: obs.capacity's regrow_timeline reads them
+        obs_events.record("executor.regrow", schedule=schedule, member_capacity_before=m,
+                          deferred_capacity_before=d, member_capacity=new_m,
+                          deferred_capacity=new_d)
         return new_m, new_d
 
     def _retry(self, err: RuntimeError, retries: int, schedule: str, stats) -> int:
@@ -155,6 +162,8 @@ class JoinExecutor:
         if retries > self.max_retries:
             raise JoinError(f"{schedule} join failed after {self.max_retries} retries") from err
         stats.transient_retries += 1
+        obs_events.record("executor.transient_retry", schedule=schedule, attempt=retries,
+                          error=str(err)[:200])
         if self.retry_backoff_s > 0:
             time.sleep(self.retry_backoff_s * (2 ** (retries - 1)))
         return retries

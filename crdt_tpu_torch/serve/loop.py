@@ -28,6 +28,7 @@ import numpy as np
 
 from ..error import ConsistencyUnavailableError
 from ..obs import events as obs_events
+from ..obs.metrics import Histogram
 from . import consistency as cons
 from .query import _PLANE, ReadRequest, ResultFrame, gather, infer_kind
 
@@ -63,17 +64,24 @@ class ServeLoop:
         self.stall_threshold_s = stall_threshold_s
         self._lock = threading.Lock()
         self._counts = {"admit": {}, "park": {}, "reject": {}, "stalls": 0,
-                        "not_stable_rows": 0, "park_wait_s": 0.0, "latency_s": {}}
+                        "not_stable_rows": 0, "park_wait_s": 0.0, "latency_s": {},
+                        "reads": 0, "batches": 0, "park_hist": Histogram(),
+                        "reads_per_s": None}
 
     def counts(self) -> dict:
         """Admitted, parked and rejected batches per mode, decode stalls,
-        rows stamped not stable, the seconds parked in all, and per mode
-        the served batches' ``count``, ``total_s`` and ``max_s``."""
+        rows stamped not stable, the seconds parked in all (and their
+        log2 ``park_hist`` over the parked batches served), rows read and
+        batches served, the last batch's rows per second, and per mode
+        the served batches' ``count``, ``total_s``, ``max_s`` and their
+        log2 ``hist`` (:class:`~crdt_tpu_torch.obs.metrics.Histogram`)."""
         with self._lock:
             out = dict(self._counts)
             for k in ("admit", "park", "reject"):
                 out[k] = dict(out[k])
-            out["latency_s"] = {m: dict(v) for m, v in out["latency_s"].items()}
+            out["park_hist"] = out["park_hist"].copy()
+            out["latency_s"] = {m: {**v, "hist": v["hist"].copy()}
+                                for m, v in out["latency_s"].items()}
         return out
 
     def _tally(self, what: str, mode: str) -> None:
@@ -151,11 +159,18 @@ class ServeLoop:
         with self._lock:
             self._counts["not_stable_rows"] += bad
             self._counts["park_wait_s"] += parked_s
+            self._counts["reads"] += len(req)
+            self._counts["batches"] += 1
+            if deadline is not None:
+                self._counts["park_hist"].observe(parked_s)
+            if wall > 0 and len(frame):
+                self._counts["reads_per_s"] = len(frame) / wall
             lat = self._counts["latency_s"].setdefault(
-                req.mode, {"count": 0, "total_s": 0.0, "max_s": 0.0})
+                req.mode, {"count": 0, "total_s": 0.0, "max_s": 0.0, "hist": Histogram()})
             lat["count"] += 1
             lat["total_s"] += wall
             lat["max_s"] = max(lat["max_s"], wall)
+            lat["hist"].observe(wall)
         return frame
 
     def serve_frames(self, frames: Iterable[bytes], *, overlap: bool = True) -> tuple:
