@@ -245,10 +245,29 @@ Phases, in order; any failure ends the run with a nonzero exit:
    against the full state's, K2 launches, peak device memory and host
    RSS, free disk and host memory before the phase, and its wall time.
 
+15. collectives — ``anti_entropy(impl="pallas", max_rounds=3)`` over the
+   north-star fleet (phase 4's shapes, 20 chunks of 62,500 objects, built
+   on the card from seeded columns): the union-aligned fold kernel folds
+   each chunk and the merge kernel runs the self-merges; rounds and wall
+   time per chunk.  Chunk 0 must equal the fold kernel's
+   ``fold_merge(plunger=True)`` followed by the same number of further
+   self-merges, the merge kernel's route (``impl=None``, rounds too) and,
+   on its first 512 objects, the plain version on the CPU; every launch
+   of the merge kernel is held against ``merge_reference`` and every
+   launch of the union-aligned fold against its plain version.  Then one
+   rank joins an NCCL process group of world size one (a ``FileStore`` in
+   a temporary directory): the clock join on the chunk's eight clock
+   planes, the ORSWOT join on the folded chunk (and with
+   ``object_axis`` on a 1x1 mesh), the Map, LWW, MVReg and GSet joins on
+   4,096-object fleets and ``allgather_fleet_snapshots`` must each give
+   this rank's state back, and a CPU tensor must not reach the NCCL
+   group; the group is destroyed at the end.  One ``collectives`` JSON
+   line carries the numbers.
+
 Launch counts are reset just before phase 4 and read just after, and
 again around phases 5, 6, 6b, 7, 8, 9 and 11, around phase 12's sessions,
 around phase 13's rounds and reads, around phase 14's rounds, writes,
-kill and rejoin, and around each step of phase 10's
+kill and rejoin, around phase 15's 20 chunks, and around each step of phase 10's
 main path (the replicas' plunger, the
 session step, the GC pass and the truncate; the checks between them are
 not counted).  The last lines are the kernel table (JSON), the card's
@@ -259,6 +278,7 @@ CUDA card; exits nonzero without one.
 from __future__ import annotations
 
 import dataclasses
+import faulthandler
 import gc
 import json
 import os
@@ -398,6 +418,15 @@ def same_planes(got, want, what: str):
             raise AssertionError(f"{what}: {name} differs")
 
 
+def star_universe():
+    """The north-star shapes' identity universe (A actors, M members, D
+    deferred rows)."""
+    from crdt_tpu_torch import CrdtConfig, Universe
+
+    return Universe.identity(CrdtConfig.gpu_default(
+        num_actors=A, member_capacity=M, deferred_capacity=D))
+
+
 def to_dev(planes, dev):
     """Unsigned numpy planes → biased device planes (the package domain)."""
     import torch
@@ -412,6 +441,15 @@ def to_dev(planes, dev):
 
 def stack_np(reps):
     return tuple(np.stack([rep[k] for rep in reps]) for k in range(5))
+
+
+def star_planes(rng, dev, n: int = CHUNK, r: int = R):
+    """``r`` seeded north-star replica fleets of ``n`` objects, built on
+    ``dev`` as biased ``[r, n, ...]`` planes."""
+    from crdt_tpu_torch.utils.testdata import build_fleet_planes, fleet_columns
+
+    cols = fleet_columns(rng, n, A, M, D, r, base=BASE, novel=NOVEL, deferred_frac=DEFERRED_FRAC)
+    return build_fleet_planes(cols, a=A, m_cap=M, d=D, base=BASE, novel=NOVEL, device=dev)
 
 
 def full_range(rng, planes):
@@ -815,20 +853,15 @@ def time_kernels(dev, planes, worst):
 def main_path(dev, n_chunks: int):
     import torch
 
-    from crdt_tpu_torch import CrdtConfig, JoinExecutor, OrswotBatch, Universe
+    from crdt_tpu_torch import JoinExecutor, OrswotBatch
     from crdt_tpu_torch.ops import orswot_ops, orswot_tile as tile
-    from crdt_tpu_torch.utils.testdata import build_fleet_planes, fleet_columns
 
     rng = np.random.RandomState(SEED + 1)
-    uni = Universe.identity(CrdtConfig.gpu_default(
-        num_actors=A, member_capacity=M, deferred_capacity=D))
+    uni = star_universe()
     fold_ms = []
     first = None
     for c in range(n_chunks):
-        cols = fleet_columns(rng, CHUNK, A, M, D, R, base=BASE, novel=NOVEL,
-                             deferred_frac=DEFERRED_FRAC)
-        planes = build_fleet_planes(cols, a=A, m_cap=M, d=D, base=BASE, novel=NOVEL,
-                                    device=dev)
+        planes = star_planes(rng, dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = orswot_ops.fold_merge(*planes, M, D, impl="pallas", u_cap=U_CAP)
@@ -921,18 +954,14 @@ def wire_leg(dev, card: str):
 
     import torch
 
-    from crdt_tpu_torch import (
-        CrdtConfig, OrswotBatch, PipelinedWireLoop, Universe, WireFormatError, _build,
-    )
+    from crdt_tpu_torch import OrswotBatch, PipelinedWireLoop, WireFormatError, _build
     from crdt_tpu_torch.batch import wirebulk
     from crdt_tpu_torch.native import engine
     from crdt_tpu_torch.ops import orswot_ops
     from crdt_tpu_torch.utils.serde import from_binary, to_binary
-    from crdt_tpu_torch.utils.testdata import build_fleet_planes, fleet_columns
 
     rng = np.random.RandomState(SEED + 4)
-    uni = Universe.identity(CrdtConfig.gpu_default(
-        num_actors=A, member_capacity=M, deferred_capacity=D))
+    uni = star_universe()
     loop = PipelinedWireLoop(uni, device=dev)
     to_wire_s, bytes_in, bytes_out = 0.0, 0, 0
     wirebulk.reset_wire_counts()
@@ -941,10 +970,7 @@ def wire_leg(dev, card: str):
     fleets, oracles = [], []
     while len(fleets) < n_max:
         c = len(fleets)
-        cols = fleet_columns(rng, CHUNK, A, M, D, R, base=BASE, novel=NOVEL,
-                             deferred_frac=DEFERRED_FRAC)
-        planes = build_fleet_planes(cols, a=A, m_cap=M, d=D, base=BASE, novel=NOVEL,
-                                    device=dev)
+        planes = star_planes(rng, dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rep_blobs = [OrswotBatch(*(x[r] for x in planes)).to_wire(uni) for r in range(R)]
@@ -1097,12 +1123,11 @@ def wire_routes(dev, card: str, rep_blobs):
     accelerator) and compacts."""
     import torch
 
-    from crdt_tpu_torch import CrdtConfig, OrswotBatch, Universe
+    from crdt_tpu_torch import OrswotBatch
     from crdt_tpu_torch.dtypes import h2d_bytes
     from crdt_tpu_torch.utils.serde import to_binary
 
-    uni = Universe.identity(CrdtConfig.gpu_default(
-        num_actors=A, member_capacity=M, deferred_capacity=D))
+    uni = star_universe()
     blobs = rep_blobs[0]  # replica 0 holds the planted deferred rows
     batches = {}
     for via in (False, True):
@@ -1256,18 +1281,13 @@ def op_path(dev, card: str):
     the plain merge.  Returns the merge kernel's launches of the phase."""
     import torch
 
-    from crdt_tpu_torch import CrdtConfig, OrswotBatch, PipelinedOpLoop, Universe, _build
+    from crdt_tpu_torch import OrswotBatch, PipelinedOpLoop, _build
     from crdt_tpu_torch.utils.serde import to_binary
-    from crdt_tpu_torch.utils.testdata import build_fleet_planes, fleet_columns
 
     rng = np.random.RandomState(SEED + 7)
-    uni = Universe.identity(CrdtConfig.gpu_default(
-        num_actors=A, member_capacity=M, deferred_capacity=D))
+    uni = star_universe()
     t0 = time.perf_counter()
-    cols = fleet_columns(rng, N_TOTAL, A, M, D, 1, base=BASE, novel=NOVEL,
-                         deferred_frac=DEFERRED_FRAC)
-    built = OrswotBatch(*(x[0] for x in build_fleet_planes(
-        cols, a=A, m_cap=M, d=D, base=BASE, novel=NOVEL, device=dev)))
+    built = OrswotBatch(*(x[0] for x in star_planes(rng, dev, N_TOTAL, 1)))
     fleet = built.merge(built)  # canonical: ascending-id slots, deferred replayed
     if _build.launch_counts()["orswot_merge"] == 0:
         raise AssertionError("the fleet's self-merge did not launch the merge kernel")
@@ -1510,13 +1530,8 @@ def flat_fold(name, cls, reps, wire_r, extra, uni, card: str):
            "cpu_checked": k, "sampled": sample, **wire,
            "phase_s": {"fold_timing": t1 - t0, "cpu_check": t2 - t1, "sample_check": t3 - t2,
                        "wire_round_and_checks": time.perf_counter() - t3}}
-    log(f"  {name}: {n} objects x {len(reps)} replicas, fold {ms:.4f} ms ({merge_ms:.4f} ms per "
-        f"merge, bound {b_ms:.4f} ms by {b_by}, {row['merges_per_s'] / 1e6:.2f}M merges/s); "
-        f"device == CPU plain path on {k}, {sample} sampled == scalar engine; wire round "
-        f"({wire['wire_replicas']} replicas of {wire['wire_objects']} objects): encode "
-        f"{wire['encode_s']:.3f} s, parse "
-        f"{wire['parse_s']:.3f} s, fold+encode {wire['fold_encode_s']:.3f} s, "
-        f"{wire['wire_bytes_per_object']:.1f} B/object, codec share 1.0 [{card}]")
+    log(f"  {name}: device == CPU plain path on {k}, {sample} sampled == scalar engine, wire "
+        f"round codec share 1.0 [{card}]")
     del cpu
     torch.cuda.synchronize()
     return fold, row
@@ -1633,9 +1648,7 @@ def flat_op_fold(kind, fleet, uni, card: str):
         if set(np.nonzero(bitmap)[0].tolist()) != set(planted.tolist()):
             raise AssertionError("lww ops: the conflict bitmap != the planted set")
         row["planted_conflicts"] = 96
-    log(f"  {kind} ops: {row['ops']} ops in {FLAT_FRAMES} frames into {n} objects, "
-        f"{e2e:.4f} s ({row['ops_per_s'] / 1e6:.3f}M ops/s, {row['wire_bytes_per_op']:.2f} wire "
-        f"B/op); re-delivery unchanged; {FLAT_SAMPLE} sampled == scalar engine [{card}]")
+    log(f"  {kind} ops: re-delivery unchanged; {FLAT_SAMPLE} sampled == scalar engine [{card}]")
     return row
 
 
@@ -1827,10 +1840,8 @@ def map_checks(name, reps, tclock, out, uni, cpu_n: int, card: str):
     frac = {d: wirebulk.native_fraction(grew, d) for d in ("from_wire", "to_wire")}
     if frac != {"from_wire": 1.0, "to_wire": 1.0}:
         raise AssertionError(f"{name}: not every blob took the host codec ({grew})")
-    log(f"  {name}: first {cpu_n} objects == CPU plain path ({t1 - t0:.1f} s), {MAP_SAMPLE} "
-        f"sampled == scalar engine ({t2 - t1:.1f} s); wire round of {n} objects: encode "
-        f"{t3 - t2:.3f} s, parse {t4 - t3:.3f} s, {sum(map(len, blobs)) / n:.1f} B/object, "
-        f"codec share 1.0 [{card}]")
+    log(f"  {name}: first {cpu_n} objects == CPU plain path, {MAP_SAMPLE} sampled == scalar "
+        f"engine, wire round codec share 1.0 [{card}]")
     return {"cpu_check_s": t1 - t0, "sample_check_s": t2 - t1, "encode_s": t3 - t2,
             "parse_s": t4 - t3, "wire_bytes_per_object": sum(map(len, blobs)) / n}
 
@@ -1885,10 +1896,8 @@ def map_k2(reps, card: str):
         plain_ms = cuda_ms(plain, 1)
         in_b, out_b = nbytes(sa) + nbytes(sb), nbytes(got[:5]) + got[5].numel() * 4
         b_ms, by = bound_ms(in_b, out_b, n * (2 * m_cap) * sa[0].shape[-1] * 12)
-        log(f"  orswot_merge at the Map's {name}, nested shape {shape} (M={sa[1].shape[-1]}, "
-            f"D={sa[3].shape[-1]}, A={sa[0].shape[-1]}): bit-equal to merge_reference, plan "
-            f"{plan}; {ms:.4f} ms kernel, {plain_ms:.3f} ms plain, bound {b_ms:.4f} ms ({by}; "
-            f"{in_b + out_b} B) [{card}]")
+        log(f"  orswot_merge at the Map's {name}, nested shape {shape}: bit-equal to "
+            f"merge_reference [{card}]")
         rows.append({"launch": name, "shape": shape, "plan": plan, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
                      "bytes": in_b + out_b})
@@ -1922,9 +1931,7 @@ def map_profile(reps, merge_ms: float, card: str):
     out = {"busy_ms": busy or None, "idle_share": 1 - busy / merge_ms if busy else None,
            "kernel_launches": sum(e.count for e in kernels), "top_ops": top(ops),
            "top_kernels": top(kernels)}
-    log(f"  map_orswot merge profile: device busy {busy:.3f} ms of {merge_ms:.3f} ms "
-        f"(idle share {out['idle_share']}), {out['kernel_launches']} kernels; top ops "
-        f"{[(k, c, round(t, 3)) for k, c, t in out['top_ops']]} [{card}]")
+    log(f"  map_orswot merge profiled [{card}]")
     return out
 
 
@@ -2165,9 +2172,7 @@ def session_step(p, q, uni, full_bytes: int, card: str) -> tuple:
             f"({ {c: round(v, 4) for c, v in out[side]['split_s'].items()} }); bytes sent "
             f"{out[side]['bytes']}, received {r.bytes_received}; delta_ratio "
             f"{out[side]['delta_ratio']:.5f} [{card}]")
-    log(f"  sync_pair {wall:.3f} s; the merge kernel launched {out['k2_launches']} times, "
-        f"{out['k2_device_ms']:.3f} ms on the device (observatory); peak device memory "
-        f"{out['peak_memory_gb']:.2f} GB [{card}]")
+    log(f"  sync_pair {wall:.3f} s [{card}]")
     return sa, sb, ra, rb, out
 
 
@@ -2257,9 +2262,7 @@ def sync_gc_phase(dev, card: str):
     which phase 11 reads."""
     import torch
 
-    from crdt_tpu_torch import (
-        CrdtConfig, GcEngine, GcPolicy, OrswotBatch, OrswotKernel, Universe, _build,
-    )
+    from crdt_tpu_torch import GcEngine, GcPolicy, OrswotBatch, OrswotKernel, _build
     from crdt_tpu_torch.dtypes import as_counters
     from crdt_tpu_torch.gc import compact
     from crdt_tpu_torch.obs import convergence
@@ -2268,8 +2271,7 @@ def sync_gc_phase(dev, card: str):
     from crdt_tpu_torch.sync import delta, digest, tree
     from crdt_tpu_torch.utils.testdata import plant_dominated_deferred
 
-    uni = Universe.identity(CrdtConfig.gpu_default(num_actors=A, member_capacity=M,
-                                                   deferred_capacity=D))
+    uni = star_universe()
     rng = np.random.RandomState(SEED + 10)
     rep = {"card": card, "objects": N_TOTAL, "shape": [A, M, D], "divergence": SYNC_DIV}
     torch.cuda.reset_peak_memory_stats()
@@ -2283,9 +2285,7 @@ def sync_gc_phase(dev, card: str):
         torch.cuda.empty_cache()
         planted = np.union1d(rows_p, rows_q)
         fleet_bytes = nbytes([getattr(p, k) for k in PLANES])
-        log(f"  replicas: {N_TOTAL} objects each, {fleet_bytes / 1e9:.3f} GB of planes, "
-            f"{len(rows_p)} + {len(rows_q)} rows diverged by one add each ({len(planted)} "
-            f"distinct), built in {rep['build_s']:.1f} s")
+        log(f"  replicas: {N_TOTAL} objects each, built [{card}]")
 
         # 2. find the diverged rows: digests, trees, descent
         _build.reset_launch_counts()
@@ -2304,10 +2304,7 @@ def sync_gc_phase(dev, card: str):
         rep.update(digest_ms=[ms_p, ms_q], digest_wall_ms=[wall_p, wall_q],
                    digest_bound_ms=b_ms, tree_build_ms_both=tree_ms, descent_ms=descent_ms,
                    descent=dataclasses.asdict(stats), diverged=int(ids.size))
-        log(f"  digests: {ms_p:.2f} / {ms_q:.2f} ms per fleet (CUDA events; wall {wall_p:.1f} / "
-            f"{wall_q:.1f} ms), bytes bound {b_ms:.3f} ms; trees {tree_ms:.2f} ms for both; "
-            f"descent {descent_ms:.1f} ms, {stats.levels} levels, {stats.payload_bytes} B per "
-            f"side: {ids.size} rows == diverged_indices == the planted rows [{card}]")
+        log(f"  descent: {ids.size} rows == diverged_indices == the planted rows [{card}]")
 
         # 3. the exchange: two sessions through sync_pair, then an idle re-sync
         rep["full_state_bytes"], rep["full_state_encode_s"] = full_state_bytes(p, uni,
@@ -2379,13 +2376,7 @@ def sync_gc_phase(dev, card: str):
                      "oplog_ops_dropped": report.oplog_ops_dropped,
                      "watermark_max_counter": report.watermark.max_counter,
                      "watermark_peers": report.watermark.peers, "truncate_ms": trunc_ms}
-        log(f"  GC pass over Q regrown to M={GC_M}, D={GC_D}: {gc_s:.3f} s (steps "
-            f"{ {step: round(v, 4) for step, v in report.seconds.items()} }); tombstones cleared "
-            f"{report.tombstones_cleared} ({tombs} rows planted, {k // 10} duplicated), members "
-            f"freed {report.members_freed}, shrink {report.member_capacity} / "
-            f"{report.deferred_capacity}, {plane_diff} plane bytes reclaimed, "
-            f"{report.oplog_ops_dropped} of {GC_FRAMES * GC_FRAME_OPS} logged ops dropped "
-            f"below the watermark (max counter {report.watermark.max_counter}) [{card}]")
+        log(f"  GC pass over Q regrown to M={GC_M}, D={GC_D}: {gc_s:.3f} s [{card}]")
 
         # 5. the GC property at full width
         want = digest.digest_of(big.merge(p), uni)
@@ -2404,10 +2395,8 @@ def sync_gc_phase(dev, card: str):
         rep["k2_launches_checked"] = k2.checked
     rep["peak_memory_gb"] = max(torch.cuda.max_memory_allocated() / 1e9,
                                 rep["session"]["peak_memory_gb"], rep["session"]["earlier_peak_gb"])
-    log(f"  merge(GC'd Q, P) == merge(Q, P) by digest; truncate at the watermark "
-        f"{trunc_ms:.3f} ms == the plain path; {len(k2.checked)} merge-kernel launches "
-        f"bit-equal to merge_reference; peak device memory {rep['peak_memory_gb']:.2f} GB "
-        f"[{card}]")
+    log(f"  merge(GC'd Q, P) == merge(Q, P) by digest; truncate at the watermark == the plain "
+        f"path; {len(k2.checked)} merge-kernel launches bit-equal to merge_reference [{card}]")
     print("sync_gc " + json.dumps(rep), flush=True)
     return launches, p, ids
 
@@ -2554,9 +2543,7 @@ def read_kinds(dev, rng, card: str) -> dict:
         frame, _, wall = timed_ms(lambda: gather(batch, obj, member=member))
         same_frame(frame, gather(on_cpu[kind], obj, member=member), KIND_NAMES[kind])
         out[KIND_NAMES[kind]] = {"objects": n, "gather_wall_ms": wall}
-    log(f"  other kinds, one {READ_B}-row batch each on the card == the CPU path: "
-        + ", ".join(f"{k} {v['gather_wall_ms']:.2f} ms" for k, v in out.items() if k != "build_s")
-        + f" (fleets built in {out['build_s']:.1f} s) [{card}]")
+    log(f"  other kinds, one {READ_B}-row batch each on the card == the CPU path [{card}]")
     return out
 
 
@@ -2567,8 +2554,8 @@ def read_phase(dev, card: str, fleet, diverged):
     which phase 12 reconciles."""
     import torch
 
-    from crdt_tpu_torch import (CapacityTracker, CrdtConfig, GcEngine, GcPolicy, HeatTracker,
-                                StabilityTracker, Universe, _build, kernel_observatory)
+    from crdt_tpu_torch import (CapacityTracker, GcEngine, GcPolicy, HeatTracker, StabilityTracker,
+                                _build, kernel_observatory)
     from crdt_tpu_torch.obs import convergence, heat as heat_mod, stability
     from crdt_tpu_torch.dtypes import counters_to_numpy
     from crdt_tpu_torch.oplog import OpApplier, derive_add_ctx
@@ -2577,8 +2564,7 @@ def read_phase(dev, card: str, fleet, diverged):
     from crdt_tpu_torch.sync import delta
     from crdt_tpu_torch.utils.serde import from_binary
 
-    uni = Universe.identity(CrdtConfig.gpu_default(num_actors=A, member_capacity=M,
-                                                   deferred_capacity=D))
+    uni = star_universe()
     rng = np.random.RandomState(SEED + 11)
     t_phase = time.perf_counter()
     rep = {"card": card, "objects": N_TOTAL, "shape": [A, M, D], "batch": READ_B,
@@ -2655,13 +2641,8 @@ def read_phase(dev, card: str, fleet, diverged):
                    reads_per_s=n_reads / (sum(walls) / 1e3), heat_record_ms=rec_ms,
                    write_fold_s=write_s, frontier_ms=fold_ms, checks_s=checks_s,
                    not_stable_by_subtree=not_stable)
-        log(f"  {READ_NB} ORSWOT read batches of {READ_B} ({n_reads} reads, {wobj.size} writes "
-            f"folded in {READ_WRITE_CHUNKS} chunks of {[round(t, 3) for t in write_s]} s): "
-            f"{rep['reads_per_s'] / 1e6:.3f}M reads/s end to end (gather wall per batch "
-            f"{min(walls):.2f}-{max(walls):.2f} ms, median {np.median(walls):.2f}); heat record "
-            f"median {np.median(rec_ms):.2f} ms per batch; each frame == the CPU path; frontier "
-            f"batches' statuses == the numpy frontier, ST_NOT_STABLE by subtree {not_stable} "
-            f"[{card}]")
+        log(f"  {READ_NB} ORSWOT read batches of {READ_B}: each frame == the CPU path; frontier "
+            f"batches' statuses == the numpy frontier [{card}]")
 
         # the gather's device time and bytes bound, and its copy back
         dev_ms, d2h_ms, moved, bounds = [], [], [], []
@@ -2688,11 +2669,7 @@ def read_phase(dev, card: str, fleet, diverged):
         rep.update(gather_device_ms=dev_ms, gather_bound_ms=bounds, d2h_ms=d2h_ms,
                    d2h_bytes=moved, sketch_ms=sketch_ms, heat_fold_ms=hfold_ms,
                    frontier_fold_ms=front_ms, frontier_fold_bound_ms=front_bound)
-        log(f"  ORSWOT gather: device {np.median(dev_ms):.4f} ms per batch (CUDA events, median "
-            f"of {READ_TIMED}) against a bytes bound of {np.median(bounds):.4f} ms; copy back "
-            f"{np.median(d2h_ms):.3f} ms for {moved[0]} B; heat sketch {sketch_ms:.4f} ms, heat "
-            f"fold {hfold_ms:.4f} ms; frontier fold {front_ms:.4f} ms against a bound of "
-            f"{front_bound:.4f} ms (refresh with evidence {np.median(fold_ms):.1f} ms) [{card}]")
+        log(f"  ORSWOT gather timed on {READ_TIMED} batches [{card}]")
 
         # heat: the subtree totals and the sketch against the stream itself
         snap = heat.snapshot()
@@ -2712,9 +2689,7 @@ def read_phase(dev, card: str, fleet, diverged):
         rep.update(hot=hot, s_hat=snap["zipf"]["s_hat"], zipf_r2=snap["zipf"]["r2"],
                    reads_by_mode=snap["reads_by_mode"])
         log(f"  heat: subtree totals == the stream's bincount; the sketch's top 8 == the "
-            f"stream's, every decoded count within [count - err, count]; s_hat "
-            f"{snap['zipf']['s_hat']:.4f} (r2 {snap['zipf']['r2']:.4f}) beside zipf_s 1.1; reads "
-            f"by mode {snap['reads_by_mode']}")
+            f"stream's, every decoded count within [count - err, count]")
 
         # 4,096 reads against the scalar ReadCtx loop (bench_reads' parity gate)
         t0 = time.perf_counter()
@@ -2771,16 +2746,12 @@ def read_phase(dev, card: str, fleet, diverged):
                                  f"{len(k2.checked)} checked, observed {table}")
         rep.update(audit_checks=audit.checks, k2=table, capacity=wm, device_memory=mem,
                    gc_due=[eng.due(1), eng.due(8)], stability=trk.snapshot()["aging"])
-        log(f"  audit of {READ_AUDIT} rows: 0 violations in {rep['audit_s']:.3f} s, the merge "
-            f"kernel {launches} launch(es) ({table['device_ms_total']:.3f} ms on the card, "
-            f"{len(k2.checked)} bit-equal to merge_reference); capacity {wm['state']} (live_max "
-            f"{wm['planes']['orswot']['live_max']}), device memory {mem}; GcEngine.due "
-            f"{rep['gc_due']} [{card}]")
+        log(f"  audit of {READ_AUDIT} rows: 0 violations, {len(k2.checked)} merge-kernel launches "
+            f"bit-equal to merge_reference [{card}]")
         rep["kinds"] = read_kinds(dev, rng, card)
     rep["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     rep["phase_s"] = time.perf_counter() - t_phase
-    log(f"  peak device memory {rep['peak_memory_gb']:.2f} GB; phase 11 {rep['phase_s']:.1f} s "
-        f"[{card}]")
+    log(f"  phase 11 {rep['phase_s']:.1f} s [{card}]")
     print("reads " + json.dumps(rep, default=lambda x: x.tolist() if hasattr(x, "tolist")
                                 else str(x)), flush=True)
     return launches, fleet
@@ -2916,13 +2887,12 @@ def cluster_phase(dev, card: str, fleet):
     and the reconciled replica P, which phase 13 gossips."""
     import torch
 
-    from crdt_tpu_torch import CrdtConfig, SyncSession, Universe, _build, kernel_observatory
+    from crdt_tpu_torch import SyncSession, _build, kernel_observatory
     from crdt_tpu_torch.cluster import ALIVE, FaultPlan, FaultyTransport, ResilientTransport
     from crdt_tpu_torch.cluster import RetryPolicy, TcpTransport
     from crdt_tpu_torch.obs import events
 
-    uni = Universe.identity(CrdtConfig.gpu_default(num_actors=A, member_capacity=M,
-                                                   deferred_capacity=D))
+    uni = star_universe()
     rng = np.random.RandomState(SEED + 12)
     t_phase = time.perf_counter()
     rep = {"card": card, "objects": N_TOTAL, "shape": [A, M, D], "divergence": SYNC_DIV,
@@ -3013,18 +2983,10 @@ def cluster_phase(dev, card: str, fleet):
             "socket_frames": wire.frames, "socket_bytes": wire.bytes,
             "counts": synced, "counts_closed": end.counts(), "rtt": end.rtt.snapshot(),
             "rto_s": end.current_rto(), "injected": faulty.injected}
-        split = {c: round(v, 4) for c, v in rep[side]["split_s"].items()}
-        log(f"  session {side} over TCP: {rep[side]['wall_s']:.3f} s wall ({split}); "
-            f"{r.delta_chunks_sent} delta chunks; on the socket {wire.frames} frames, "
-            f"{wire.bytes} B; ARQ {synced}; srtt {rep[side]['rtt']['srtt_s']} s over "
-            f"{rep[side]['rtt']['samples']} samples, RTO {end.current_rto():.4f} s; injected "
-            f"{faulty.injected} [{card}]")
+        log(f"  session {side} over TCP: {rep[side]['wall_s']:.3f} s [{card}]")
     rep["phase_s"] = time.perf_counter() - t_phase
-    log(f"  sessions over TCP {sync_s:.3f} s (with the serve and close {link_s:.3f} s); the merge "
-        f"kernel {launches} launches, {table['device_ms_total']:.3f} ms on the device "
-        f"(observatory), each bit-equal to merge_reference; peer q {transitions[0]['old']} -> "
-        f"{transitions[0]['new']} -> {transitions[1]['new']}; peak device memory "
-        f"{rep['peak_memory_gb']:.2f} GB; phase 12 {rep['phase_s']:.1f} s [{card}]")
+    log(f"  sessions over TCP {sync_s:.3f} s; every merge-kernel launch bit-equal to "
+        f"merge_reference; peer q alive -> suspect -> alive [{card}]")
     print("cluster " + json.dumps(rep), flush=True)
     return launches, sa.batch
 
@@ -3247,10 +3209,7 @@ def profiled_round(fleet, r: int, card: str) -> tuple:
     out = {"node": fleet[0].name, "wall_s": wall, "fleet_round_wall_s": x["wall_s"],
            "busy_ms": busy, "busy_share": busy / (wall * 1e3), "kernels": len(device),
            "trace_bytes": trace}
-    log(f"  profiled idle round {r}: {fleet[0].name}'s scheduler round {wall:.3f} s wall (the "
-        f"fleet round {x['wall_s']:.3f} s), device busy {out['busy_ms']} ms (share "
-        f"{out['busy_share']}), {out['kernels']} device events, {out['trace_bytes']} B of "
-        f"trace, diverged {x['diverged']} [{card}]")
+    log(f"  profiled idle round {r}: device busy share {out['busy_share']} [{card}]")
     return x, out
 
 
@@ -3556,7 +3515,7 @@ def gossip_phase(dev, card: str, start):
     auditor's self-merges)."""
     import torch
 
-    from crdt_tpu_torch import CrdtConfig, OrswotBatch, Universe, _build, kernel_observatory
+    from crdt_tpu_torch import OrswotBatch, _build, kernel_observatory
     from crdt_tpu_torch.serve import ReadRequest, encode_read_request, visible_vv
 
     from crdt_tpu_torch.obs import CapacityTracker, FleetObservatory, MetricsRegistry
@@ -3573,8 +3532,7 @@ def gossip_phase(dev, card: str, start):
            "read_batch": GOSSIP_READ_B, "read_pause_s": GOSSIP_READ_PAUSE_S,
            "park_timeout_s": GOSSIP_PARK_S}
     torch.cuda.reset_peak_memory_stats()
-    uni = Universe.identity(CrdtConfig.gpu_default(num_actors=A, member_capacity=M,
-                                                   deferred_capacity=D))
+    uni = star_universe()
     robj, rmember, wobj = read_traffic(rng)
     # the start stays on the host for the checks: n0 holds its planes only
     # until its first fold replaces them
@@ -3629,16 +3587,8 @@ def gossip_phase(dev, card: str, start):
                                                  for d in digests[1:])
                     x["allocated_gb"] = torch.cuda.memory_allocated() / 1e9
                     rounds.append(x)
-                    legs = [(a, b, c, y.diverged, round(y.profile.wall_ns / 1e9, 3),
-                             round(y.profile.kernel_ns / 1e9, 3),
-                             round(y.profile.network_ns / 1e9, 3))
-                            for a, b, c, y in x["reports"]]
                     equal = "not compared" if x["digests_equal"] is None else x["digests_equal"]
-                    log(f"  round {r}: {x['wall_s']:.3f} s, {len(x['reports'])} session legs ok, "
-                        f"{len(x['failed'])} failed, {len(x['busy'])} refused by a busy bound; "
-                        f"diverged rows found {x['diverged']}; digests equal: {equal}; "
-                        f"{x['allocated_gb']:.2f} GB allocated; legs (node, peer, leg, diverged, "
-                        f"wall s, kernel s, network s): {legs} [{card}]")
+                    log(f"  round {r}: {x['wall_s']:.3f} s, digests equal: {equal} [{card}]")
                     if x["failed"]:
                         raise AssertionError(f"round {r}: failed session legs {x['failed']}")
                     gossip_scrape(fleet, patterns, route_ms, exact=False,
@@ -3746,24 +3696,12 @@ def gossip_phase(dev, card: str, start):
                         for route, ms in route_ms.items()}
     rep["profiled_round"] = profiled
     rep["phase_s"] = time.perf_counter() - t_phase
-    fleet_bytes = rep["observatory"]["fleet_bytes_per_leg"]
-    scrape = {r: (round(v["p50"], 2), round(v["max"], 2)) for r, v in rep["scrape_ms"].items()}
-    log(f"  telemetry: FLEET frames {min(fleet_bytes)}-{max(fleet_bytes)} B per leg; the "
-        f"observatories' encode {obs_s['encode_s']:.3f} s and merge {obs_s['merge_s']:.3f} s, "
-        f"{100 * rep['observatory']['share_of_leg_walls']:.2f}% of the legs' walls; scrape ms "
-        f"(p50, max) {scrape} [{card}]")
-    walls = [round(s["wall_s"], 3) for s in sessions if s["diverged"]]
-    log(f"  {len(rounds)} rounds in {rounds_s:.3f} s ({[round(w, 3) for w in rep['round_wall_s']]}"
-        f" s); session legs ok per round {rep['sessions_ok']}, failed {rep['sessions_failed']}, "
-        f"refused by a busy bound {rep['busy_refused']}; diverged legs' walls {walls} s [{card}]")
-    log(f"  writes: {n_writes} acknowledged at {rep['writes_per_s']:.0f}/s (mint + submit); "
-        f"reads: {rows} rows in {len(calls)} serve_frames calls at {rep['reads_per_s'] or 0:.0f} "
-        f"rows/s end to end, stage_s { {k: round(v, 3) for k, v in stage.items()} }; parked "
-        f"{parked}, rejected {rejected}; {reader.ryw_checked} RYW probes of acknowledged writes "
-        f"read as members [{card}]")
-    log(f"  the merge kernel {launches} launches, {table['device_ms_total']:.3f} ms on the device "
-        f"(observatory), each bit-equal to merge_reference; peak device memory "
-        f"{rep['peak_memory_gb']:.2f} GB; phase 13 {rep['phase_s']:.1f} s [{card}]")
+    log(f"  telemetry: FLEET frames on every leg [{card}]")
+    log(f"  {len(rounds)} rounds in {rounds_s:.3f} s [{card}]")
+    log(f"  writes: {n_writes} acknowledged; {reader.ryw_checked} RYW probes of acknowledged "
+        f"writes read as members [{card}]")
+    log(f"  every merge-kernel launch bit-equal to merge_reference; phase 13 "
+        f"{rep['phase_s']:.1f} s [{card}]")
     print("gossip " + json.dumps(rep, default=lambda x: x.tolist() if hasattr(x, "tolist")
                                  else str(x)), flush=True)
     return launches
@@ -3863,7 +3801,7 @@ def durable_phase(dev, card: str, start):
 
     import torch
 
-    from crdt_tpu_torch import CrdtConfig, OrswotBatch, StabilityTracker, Universe, _build
+    from crdt_tpu_torch import OrswotBatch, StabilityTracker, _build
     from crdt_tpu_torch.cluster import CrashPlan, InjectedCrash, arm_crashes, disarm_crashes
     from crdt_tpu_torch.durable import Durability, WalWriter, recover
     from crdt_tpu_torch.oplog import derive_add_ctx, encode_ops_frame
@@ -3886,8 +3824,7 @@ def durable_phase(dev, card: str, start):
                              f"than one generation ({replica_bytes} bytes of planes); host "
                              f"memory available {avail} bytes")
     torch.cuda.reset_peak_memory_stats()
-    uni = Universe.identity(CrdtConfig.gpu_default(num_actors=A, member_capacity=M,
-                                                   deferred_capacity=D))
+    uni = star_universe()
     wobj = read_traffic(rng)[2]
     fleet, kept, acked, rounds, write_s = [], [[], []], [[], []], [], [[], []]
     off = 0
@@ -3901,11 +3838,7 @@ def durable_phase(dev, card: str, start):
 
     def run_round(r, what):
         x = gossip_round(fleet, r)
-        legs = [(a, b, c, y.diverged, round(y.profile.wall_ns / 1e9, 3)) for a, b, c, y in
-                x["reports"]]
-        log(f"  {what} round {r}: {x['wall_s']:.3f} s, legs (node, peer, leg, diverged, wall "
-            f"s) {legs}; {len(x['failed'])} failed, {len(x['busy'])} refused by a busy bound "
-            f"[{card}]")
+        log(f"  {what} round {r}: {x['wall_s']:.3f} s [{card}]")
         if x["failed"]:
             raise AssertionError(f"{what} round {r}: failed session legs {x['failed']}")
         return x
@@ -4066,25 +3999,165 @@ def durable_phase(dev, card: str, start):
                         "diverged": x["diverged"]} for x in rounds],
                phase_s=time.perf_counter() - t_phase)
     c, s_ = rep["checkpoint"], rep["restore"]
-    log(f"  checkpoint: generation 1, {c['bytes']} bytes on disk in {c['wall_s']:.3f} s "
-        f"({ {k_: round(v, 3) for k_, v in c['split_s'].items()} }); restore {s_['wall_s']:.3f} s "
-        f"({ {k_: round(v, 3) for k_, v in s_['split_s'].items()} }), replayed "
-        f"{s_['report']['replayed_frames']} frames, {s_['report']['replayed_ops']} ops "
-        f"[{card}]")
-    log(f"  rejoin: {rep['rejoin']['rounds']} rounds, rows diverged {rep['rejoin']['diverged']}, "
-        f"{rep['rejoin']['delta_bytes']} delta bytes against {rep['rejoin']['full_state_bytes']} "
-        f"of full state; WAL append p50 {rep['wal_probe']['append_ms_p50']:.3f} ms, p99 "
-        f"{rep['wal_probe']['append_ms_p99']:.3f} ms; K2 {rep['k2_launches']} launches, each "
-        f"equal to merge_reference; peak device memory {rep['peak_memory_gb']:.2f} GB, host RSS "
-        f"{rep['peak_host_rss_gb']:.2f} GB; phase 14 {rep['phase_s']:.1f} s [{card}]")
+    log(f"  checkpoint: generation 1 in {c['wall_s']:.3f} s; restore {s_['wall_s']:.3f} s, every "
+        f"WAL'd op replayed [{card}]")
+    log(f"  rejoin: {rep['rejoin']['rounds']} rounds; every merge-kernel launch equal to "
+        f"merge_reference; phase 14 {rep['phase_s']:.1f} s [{card}]")
     print("durable " + json.dumps(rep, default=lambda x: x.tolist() if hasattr(x, "tolist")
                                   else str(x)), flush=True)
     return rep["k2_launches"]
 
 
+# -- phase 15 ------------------------------------------------------------------
+
+AE_MAX_ROUNDS, AE_CPU_N, NCCL_SMALL_N = 3, 512, 4096
+
+
+def collectives_phase(dev, card: str):
+    """Phase 15: ``anti_entropy`` over the north-star fleet's 20 chunks
+    (the pairwise fold, then self-merges: every merge the merge kernel),
+    chunk 0 held against the fold kernel's plunger fold and the CPU, its
+    fold and one self-merge timed alone; then each collective join over
+    NCCL at world size one.  Returns each kernel's launches on the
+    phase's path."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from crdt_tpu_torch import OrswotBatch, _build
+    from crdt_tpu_torch.ops import orswot_ops
+    from crdt_tpu_torch.parallel import anti_entropy, initialize
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(SEED + 15)
+    rep = {"card": card, "objects": N_TOTAL, "chunk": CHUNK, "shape": [A, M, D, R],
+           "max_rounds": AE_MAX_ROUNDS, "rounds": [], "ms": [], "wall_ms": []}
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    with K2Launches() as k2:
+        for c in range(N_TOTAL // CHUNK):
+            planes = star_planes(rng, dev)
+            (merged, rounds), ms, wall = timed_ms(lambda: anti_entropy(
+                OrswotBatch(*planes), AE_MAX_ROUNDS))
+            rep["ms"].append(ms)
+            rep["wall_ms"].append(wall)
+            rep["rounds"].append(rounds)
+            k2.check(f"phase 15 chunk {c}")
+            if c == 0:
+                first = (planes, planes_of(merged), rounds)
+            del planes, merged
+        launches = _build.launch_counts()
+        if not launches["orswot_merge"] or launches["orswot_fold_aligned"] + launches[
+                "orswot_fold"]:
+            raise AssertionError(f"anti_entropy did not run through the merge kernel: {launches}")
+
+        planes, got, rounds = first
+        # the fold kernel's plunger fold is rounds 1 and 2: a third round
+        # runs when the plunger changed the fold, and adds one self-merge
+        fold, want = (orswot_ops.fold_merge(*planes, M, D, plunger=p, impl="pallas",
+                                            u_cap=U_CAP) for p in (False, True))
+        if bool(fold[5].any() or want[5].any()):
+            raise AssertionError("chunk 0: the fold kernel flagged overflow")
+        ref_rounds = 2 if not max_abs_err(fold[:5], want[:5]) else AE_MAX_ROUNDS
+        want = want[:5]
+        for _ in range(ref_rounds - 2):
+            want = orswot_ops.merge(*want, *want, M, D)[:5]
+        cpu, rep["cpu_rounds"] = anti_entropy(OrswotBatch(*(
+            x[:, :AE_CPU_N].cpu() for x in planes)), AE_MAX_ROUNDS)
+        for what, x, y in (
+                (f"fold_merge(plunger=True) + self-merges, {ref_rounds} rounds", want, ref_rounds),
+                (f"the CPU on its first {AE_CPU_N} objects", planes_of(cpu), rounds)):
+            if max_abs_err(x, [p[:x[0].shape[0]].to(x[0].device) for p in got]) or y != rounds:
+                raise AssertionError(f"chunk 0: anti_entropy ({rounds} rounds) != {what}")
+        k2.check("phase 15 chunk 0 cross-checks")
+        rep["k2_checked"] = len(k2.checked)
+    # anti_entropy's two parts on chunk 0, by CUDA events, past the count
+    fold = orswot_ops.fold_merge_sequential(*planes, M, D, plunger=False)
+    rep["fold_ms"] = cuda_ms(lambda: orswot_ops.fold_merge_sequential(*planes, M, D,
+                                                                      plunger=False), 5)
+    rep["self_merge_ms"] = cuda_ms(lambda: orswot_ops.merge(*fold[:5], *fold[:5], M, D), 5)
+    log(f"  anti_entropy: rounds {sorted(set(rep['rounds']))}; chunk 0 == fold_merge(plunger="
+        f"True) + self-merges == the CPU [{card}]")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize(num_processes=1, process_id=0, store=dist.FileStore(f"{tmp}/store", 1))
+        try:
+            rep["nccl_ms"] = nccl_joins(dev, planes, got)
+        finally:
+            dist.destroy_process_group()
+    rep.update(launches=launches, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               phase_s=time.perf_counter() - t_phase)
+    log(f"  NCCL at world size 1: every join equal to the local state [{card}]")
+    print("collectives " + json.dumps(rep), flush=True)
+    return launches
+
+
+def planes_of(batch) -> list:
+    return [getattr(batch, f) for f in PLANES]
+
+
+def nccl_joins(dev, planes, merged) -> dict:
+    """Each collective join over NCCL at world size one must give this
+    rank's state back, and a CPU tensor must not reach the NCCL group.
+    Returns each join's device ms, first call (the group's NCCL set-up)
+    and second."""
+    import torch
+    import torch.distributed as dist
+
+    from crdt_tpu_torch import CrdtConfig, MapBatch, MVRegKernel, OrswotBatch, Universe
+    from crdt_tpu_torch.batch import GSetBatch, LWWRegBatch, MVRegBatch
+    from crdt_tpu_torch.obs.fleet import FleetObservatory
+    from crdt_tpu_torch.parallel import (
+        all_reduce_clock_join, allgather_join_gset, allgather_join_lww, allgather_join_map,
+        allgather_join_mvreg, allgather_join_orswot, make_mesh, make_multihost_mesh,
+    )
+    from crdt_tpu_torch.parallel.collective import allgather_fleet_snapshots
+    from crdt_tpu_torch.parallel.mesh import tree_leaves
+
+    mesh = make_mesh({"replicas": 1}, device="cuda")
+    hybrid = make_multihost_mesh({"replicas": 1}, {"objects": 1}, device="cuda")
+    if str(dist.get_backend(mesh.get_group("replicas"))) != "nccl":
+        raise AssertionError("the CUDA mesh's group is not NCCL")
+    rng, n = np.random.RandomState(SEED + 16), NCCL_SMALL_N
+    uni = Universe(CrdtConfig.gpu_default(num_actors=A))
+    orswot = OrswotBatch(*(x[None] for x in merged))
+    lww = LWWRegBatch.from_numpy(rng.randint(0, 9, n), rng.randint(1, 99, n), device=dev)
+    gset = GSetBatch(torch.from_numpy(rng.rand(n, 1024) < 0.3).to(dev))
+    mvreg, mp = MVRegBatch.zeros(n, uni, dev), MapBatch.zeros(
+        n, uni, MVRegKernel.from_config(uni.config), dev)
+    ms = {}
+    for name, fn, want in (
+            ("clock", lambda: all_reduce_clock_join(planes[0], mesh),
+             planes[0].amax(dim=0, keepdim=True).expand(planes[0].shape)),
+            ("orswot", lambda: allgather_join_orswot(orswot, mesh), orswot),
+            ("orswot_object_axis", lambda: allgather_join_orswot(
+                orswot, hybrid, object_axis="objects"), orswot),
+            ("map", lambda: allgather_join_map(mp, mesh), mp),
+            ("lww", lambda: allgather_join_lww(lww, mesh)[0], lww),
+            ("mvreg", lambda: allgather_join_mvreg(mvreg, mesh), mvreg),
+            ("gset", lambda: allgather_join_gset(gset, mesh), gset)):
+        ms[name] = [timed_ms(fn)[1] for _ in range(2)]
+        if not all(map(torch.equal, tree_leaves(fn()), tree_leaves(want))):
+            raise AssertionError(f"NCCL {name} join != the local state")
+    try:
+        all_reduce_clock_join(planes[0].cpu(), mesh)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("a CPU tensor reached the NCCL group")
+    if allgather_fleet_snapshots(FleetObservatory("chip")).nodes() != ["chip"]:
+        raise AssertionError("allgather_fleet_snapshots lost the local slice")
+    return ms
+
+
 def main() -> int:
+    import threading
+
     import torch
 
+    # a native fault or abort prints every thread's Python stack first
+    faulthandler.enable()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -4128,12 +4201,7 @@ def main() -> int:
 
     log("== phase 3: kernels vs plain versions")
     worst = check_kernels(dev)
-    from crdt_tpu_torch.utils.testdata import build_fleet_planes, fleet_columns
-
-    cols = fleet_columns(np.random.RandomState(SEED + 3), CHUNK, A, M, D, R, base=BASE,
-                         novel=NOVEL, deferred_frac=DEFERRED_FRAC)
-    timed = time_kernels(dev, build_fleet_planes(cols, a=A, m_cap=M, d=D, base=BASE,
-                                                 novel=NOVEL, device=dev), worst)
+    timed = time_kernels(dev, star_planes(np.random.RandomState(SEED + 3), dev), worst)
     torch.cuda.empty_cache()
     for name, err in worst.items():
         log(f"  {name}: max abs diff {err} over every check (bit-equal, overflow flags equal)")
@@ -4164,91 +4232,58 @@ def main() -> int:
     if (stats.overflow_regrows, stats.final_member_capacity) != (2, 8):
         raise AssertionError(f"unexpected regrow ladder: {stats}")
 
-    log("== phase 6: wire leg (blobs -> fold on the card -> blobs)")
-    _build.reset_launch_counts()
-    wire_k2, chunk_blobs = wire_leg(dev, card)
-    wire_launches = _build.launch_counts()
-    log(f"  launches {wire_launches} (the merge kernel {wire_k2} by the wire loop; the "
-        "union-aligned fold only as the byte oracle)")
-    if wire_k2 == 0:
-        raise AssertionError("the wire loop never launched the merge kernel")
-    torch.cuda.empty_cache()
+    k2 = {}  # the merge kernel's launches on each phase's path, by table key
 
-    log("== phase 6b: from_wire and to_scalar, dense planes against COO columns")
-    _build.reset_launch_counts()
-    wire_routes(dev, card, chunk_blobs)
-    log(f"  launches {_build.launch_counts()}")
+    def run(key, title, fn, *args):
+        """One phase: counts reset before it, its time and launches after;
+        ``key`` names the merge kernel's launches the phase returns first,
+        which must not be 0."""
+        log(f"== phase {title}")
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"  phase {title.split(':')[0]} took {time.perf_counter() - t0:.1f} s; launches "
+            f"{_build.launch_counts()}")
+        if key:
+            k2[key] = out[0] if isinstance(out, tuple) else out
+            if not k2[key]:
+                raise AssertionError(f"phase {title} never launched the merge kernel")
+        torch.cuda.empty_cache()
+        return out
+
+    _, chunk_blobs = run("wire", "6: wire leg (blobs -> fold on the card -> blobs; the "
+                         "union-aligned fold only as the byte oracle)", wire_leg, dev, card)
+    run(None, "6b: from_wire and to_scalar, dense planes against COO columns", wire_routes,
+        dev, card, chunk_blobs)
     if _build.launch_counts()["orswot_merge"] == 0:
         raise AssertionError("phase 6b never launched the merge kernel")
     del chunk_blobs
-    torch.cuda.empty_cache()
-
-    log(f"== phase 7: op path ({OP_FRAMES} frames of {OP_FRAME_OPS} ops into {N_TOTAL} "
-        f"objects, A={A} M={M} D={D})")
-    _build.reset_launch_counts()
-    op_k2 = op_path(dev, card)
-    log(f"  launches {_build.launch_counts()} (the merge kernel: the fleet's and the final "
-        "fleet's self-merges; the op bodies are torch ops)")
-    if op_k2 == 0:
-        raise AssertionError("the op path never launched the merge kernel")
-    torch.cuda.empty_cache()
-
-    log("== phase 8: flat types (fold, wire round and op frames on the card)")
-    _build.reset_launch_counts()
-    t0 = time.perf_counter()
-    flat_types(dev, card)
-    log(f"  phase 8 took {time.perf_counter() - t0:.1f} s; launches {_build.launch_counts()} "
-        "(the flat types' bodies are torch ops)")
-    torch.cuda.empty_cache()
-
-    log("== phase 9: Map (merge, truncate and wire rounds on the card)")
-    t0 = time.perf_counter()
-    map_k2_launches = map_phase(dev, card)
-    log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
-    torch.cuda.empty_cache()
-
-    log("== phase 10: sync and GC (digests, descent, two sync sessions, GC pass)")
-    t0 = time.perf_counter()
-    sync_k2, fleet, diverged = sync_gc_phase(dev, card)
-    log(f"  phase 10 took {time.perf_counter() - t0:.1f} s; the merge kernel launched "
-        f"{sync_k2} times on its main path")
-    if sync_k2 == 0:
-        raise AssertionError("phase 10 never launched the merge kernel")
-    torch.cuda.empty_cache()
-
-    log("== phase 11: the read front-end (gathers, consistency, frontier, heat, audit, capacity)")
-    read_k2, fleet = read_phase(dev, card, fleet, diverged)
-    if read_k2 == 0:
-        raise AssertionError("phase 11 never launched the merge kernel")
-    torch.cuda.empty_cache()
-
-    log("== phase 12: cluster transport (two sessions over loopback TCP through the ARQ, "
-        "faults injected)")
-    cluster_k2, fleet = cluster_phase(dev, card, fleet)
-    torch.cuda.empty_cache()
-
-    log("== phase 13: a gossip fleet (three cluster nodes over loopback TCP taking writes and "
-        "serving reads)")
-    gossip_k2 = gossip_phase(dev, card, fleet)
-    torch.cuda.empty_cache()
-
-    log("== phase 14: durability (a checkpointed node killed mid-fold, restored from its "
-        "snapshot and WAL, rejoining by delta sync)")
-    durable_k2 = durable_phase(dev, card, fleet)
+    run("op", f"7: op path ({OP_FRAMES} frames of {OP_FRAME_OPS} ops into {N_TOTAL} objects; "
+        "the merge kernel self-merges, the op bodies are torch ops)", op_path, dev, card)
+    run(None, "8: flat types (fold, wire round and op frames on the card; torch ops)",
+        flat_types, dev, card)
+    run("map", "9: Map (merge, truncate and wire rounds on the card)", map_phase, dev, card)
+    _, fleet, diverged = run("sync", "10: sync and GC (digests, descent, two sync sessions, GC "
+                             "pass)", sync_gc_phase, dev, card)
+    _, fleet = run("read", "11: the read front-end (gathers, consistency, frontier, heat, audit, "
+                   "capacity)", read_phase, dev, card, fleet, diverged)
+    _, fleet = run("cluster", "12: cluster transport (two sessions over loopback TCP through "
+                   "the ARQ, faults injected)", cluster_phase, dev, card, fleet)
+    run("gossip", "13: a gossip fleet (three cluster nodes over loopback TCP taking writes and "
+        "serving reads)", gossip_phase, dev, card, fleet)
+    run("durable", "14: durability (a checkpointed node killed mid-fold, restored from its "
+        "snapshot and WAL, rejoining by delta sync)", durable_phase, dev, card, fleet)
     del fleet
-    torch.cuda.empty_cache()
+    collective = run(None, "15: collectives (anti_entropy over the north-star fleet, the joins "
+                     "over NCCL)", collectives_phase, dev, card)
+    log("  threads alive at the end: "
+        f"{[t.name for t in threading.enumerate() if t is not threading.main_thread()]}")
 
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
-         "wire_launches": wire_k2 if name == "orswot_merge" else 0,
-         "op_launches": op_k2 if name == "orswot_merge" else 0,
-         "map_launches": map_k2_launches if name == "orswot_merge" else 0,
-         "sync_launches": sync_k2 if name == "orswot_merge" else 0,
-         "read_launches": read_k2 if name == "orswot_merge" else 0,
-         "cluster_launches": cluster_k2 if name == "orswot_merge" else 0,
-         "gossip_launches": gossip_k2 if name == "orswot_merge" else 0,
-         "durable_launches": durable_k2 if name == "orswot_merge" else 0,
+         **{f"{key}_launches": n if name == "orswot_merge" else 0 for key, n in k2.items()},
+         "collective_launches": collective[name],
          "max_abs_err": worst[name], "ms": timed[name]["ms"],
          "plain_ms": timed[name]["plain_ms"], "bound_ms": timed[name]["bound_ms"],
          "bound_by": timed[name]["bound_by"], "library_ms": None}

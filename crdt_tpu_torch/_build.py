@@ -60,12 +60,10 @@ KERNELS = {
 GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-Wall")
 _INGEST = [P, P] + [LL] * 4 + [P] * 6 + [LL, LL]
 _ENCODE = [P] * 5 + [LL] * 4 + [P, P, LL]
-_ENCODE_ROWS = [P] * 6 + [LL] * 4 + [P, P, LL]
 # the codec legs: (name, argument types, suffixed by counter width)
 _CODEC = (
     ("orswot_ingest_wire", _INGEST, True),
     ("orswot_encode_wire", _ENCODE, True),
-    ("orswot_encode_wire_rows", _ENCODE_ROWS, True),
     ("mvreg_ingest_wire", [P, P, LL, LL, LL, P, P, P, LL], True),
     ("mvreg_encode_wire", [P, P, LL, LL, LL, P, P, LL], True),
     ("clockish_ingest_wire", [P, P, LL, LL, LL, P, P, LL], True),

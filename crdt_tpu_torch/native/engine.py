@@ -158,21 +158,6 @@ def orswot_encode_wire(clock, ids, dots, d_ids, d_clocks):
     return _encode(_fn("orswot_encode_wire", dt), planes, (n, a, m, d), n)
 
 
-def orswot_encode_wire_rows(clock, ids, dots, d_ids, d_clocks, rows):
-    """Indexed encode: only the fleet rows named by ``rows`` (int64
-    indices), straight from the full planes — byte-identical to gathering
-    the rows and calling :func:`orswot_encode_wire`, without the gather
-    copy.  Returns ``(buf, offsets)`` in ``rows`` order."""
-    planes = _contig(clock, ids, dots, d_ids, d_clocks)
-    n, a, m, d, dt = _check_planes(planes)
-    rows = np.ascontiguousarray(rows, dtype=np.int64)
-    if rows.size and (rows.min() < 0 or rows.max() >= n):
-        raise ValueError(f"orswot_encode_wire_rows: row indices must lie in [0, {n}); "
-                         f"got [{int(rows.min())}, {int(rows.max())}]")
-    k = rows.shape[0]
-    return _encode(_fn("orswot_encode_wire_rows", dt), (*planes, rows), (k, a, m, d), k)
-
-
 def _parse(fn, buf, offsets, shapes, dtype, *lead):
     """Run the parser ``fn`` over the blobs into zeroed planes of
     ``shapes`` (``n`` leading each) and return ``(*planes, status)``."""

@@ -576,31 +576,6 @@ void encode_impl(const C* clock, const int32_t* ids, const C* dots,
   });
 }
 
-// the indexed encode: only the fleet rows named by ``rows``, straight
-// from the full planes (byte-identical to gathering the rows and calling
-// encode_impl, without the gather copy).  Same two-pass contract.
-template <typename C>
-void encode_rows_impl(const C* clock, const int32_t* ids, const C* dots,
-                      const int32_t* d_ids, const C* d_clocks,
-                      const int64_t* rows, int64_t k, int64_t A, int64_t M,
-                      int64_t D, int64_t* offsets, uint8_t* buf, int nt) {
-  if (buf == nullptr) {
-    parallel_for(k, nt, [&](int64_t i) {
-      const int64_t r = rows[i];
-      offsets[i + 1] = encode_one<C>(clock + r * A, ids + r * M,
-                                     dots + r * M * A, d_ids + r * D,
-                                     d_clocks + r * D * A, A, M, D, nullptr);
-    });
-    return;
-  }
-  parallel_for(k, nt, [&](int64_t i) {
-    const int64_t r = rows[i];
-    encode_one<C>(clock + r * A, ids + r * M, dots + r * M * A,
-                  d_ids + r * D, d_clocks + r * D * A, A, M, D,
-                  buf + offsets[i]);
-  });
-}
-
 int team(int64_t threads) {
   if (threads > 0) return static_cast<int>(threads);
   const unsigned hw = std::thread::hardware_concurrency();
@@ -649,26 +624,6 @@ void orswot_encode_wire_u64(const uint64_t* clock, const int32_t* ids,
                             uint8_t* buf, int64_t threads) {
   encode_impl<uint64_t>(clock, ids, dots, d_ids, d_clocks, n, A, M, D,
                         offsets, buf, team(threads));
-}
-
-void orswot_encode_wire_rows_u32(const uint32_t* clock, const int32_t* ids,
-                                 const uint32_t* dots, const int32_t* d_ids,
-                                 const uint32_t* d_clocks,
-                                 const int64_t* rows, int64_t k, int64_t A,
-                                 int64_t M, int64_t D, int64_t* offsets,
-                                 uint8_t* buf, int64_t threads) {
-  encode_rows_impl<uint32_t>(clock, ids, dots, d_ids, d_clocks, rows, k, A,
-                             M, D, offsets, buf, team(threads));
-}
-
-void orswot_encode_wire_rows_u64(const uint64_t* clock, const int32_t* ids,
-                                 const uint64_t* dots, const int32_t* d_ids,
-                                 const uint64_t* d_clocks,
-                                 const int64_t* rows, int64_t k, int64_t A,
-                                 int64_t M, int64_t D, int64_t* offsets,
-                                 uint8_t* buf, int64_t threads) {
-  encode_rows_impl<uint64_t>(clock, ids, dots, d_ids, d_clocks, rows, k, A,
-                             M, D, offsets, buf, team(threads));
 }
 
 }  // extern "C"

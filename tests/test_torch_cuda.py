@@ -1057,3 +1057,72 @@ def test_durable_snapshot_recovery_and_rejoin_on_the_card(dev, tmp_path):
     assert np.array_equal(a.digest(), b.digest())
     assert _build.launch_counts()["orswot_merge"] >= 1
     assert not any(r.full_state_fallback or r.full_bytes_sent for r in reports)
+
+
+def _planes_of(batch):
+    return tuple(getattr(batch, f) for f in ("clock", "ids", "dots", "d_ids", "d_clocks"))
+
+
+@pytest.fixture
+def nccl_world(dev, tmp_path):
+    """A world of one rank over NCCL (one card holds one rank)."""
+    import torch.distributed as dist
+
+    from crdt_tpu_torch.parallel import initialize
+
+    initialize(num_processes=1, process_id=0, store=dist.FileStore(str(tmp_path / "store"), 1))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_nccl_joins_at_world_one_equal_the_local_state(dev, nccl_world):
+    import torch.distributed as dist
+
+    from crdt_tpu_torch import CrdtConfig, OrswotBatch, Universe
+    from crdt_tpu_torch.batch import GSetBatch, LWWRegBatch, MVRegBatch
+    from crdt_tpu_torch.obs.fleet import FleetObservatory
+    from crdt_tpu_torch.parallel import (
+        all_reduce_clock_join, allgather_join_gset, allgather_join_lww, allgather_join_mvreg,
+        allgather_join_orswot, make_mesh, make_multihost_mesh,
+    )
+    from crdt_tpu_torch.parallel.collective import allgather_fleet_snapshots
+
+    mesh = make_mesh({"replicas": 1}, device="cuda")
+    assert str(dist.get_backend(mesh.get_group("replicas"))) == "nccl"
+    planes = tuple(x[0] for x in _fleets(3, 512, 64, 16, 2, 1, dev))
+    batch = OrswotBatch(*planes)
+    assert torch.equal(all_reduce_clock_join(batch.clock[None], mesh)[0], batch.clock)
+    _equal(_planes_of(allgather_join_orswot(batch, mesh)), planes)
+    hybrid = make_multihost_mesh({"replicas": 1}, {"objects": 1}, device="cuda")
+    _equal(_planes_of(allgather_join_orswot(batch, hybrid, object_axis="objects")), planes)
+    rng = np.random.RandomState(5)
+    lww = LWWRegBatch.from_numpy(rng.randint(0, 9, 64), rng.randint(1, 99, 64), device=dev)
+    joined, conflict = allgather_join_lww(lww, mesh)
+    assert torch.equal(joined.vals, lww.vals) and not bool(conflict.any())
+    uni = Universe(CrdtConfig(num_actors=8, mv_capacity=4))
+    mv = MVRegBatch.zeros(32, uni, device=dev)
+    assert torch.equal(allgather_join_mvreg(mv, mesh).clocks, mv.clocks)
+    bits = torch.from_numpy(rng.rand(64, 32) < 0.3).to(dev)
+    assert torch.equal(allgather_join_gset(GSetBatch(bits), mesh).bits, bits)
+    with pytest.raises(ValueError, match="needs a gloo group"):
+        all_reduce_clock_join(batch.clock.cpu()[None], mesh)
+    assert allgather_fleet_snapshots(FleetObservatory("n0")).nodes() == ["n0"]
+
+
+@pytest.mark.parametrize("impl", [None, "pallas"])
+def test_anti_entropy_on_the_card_equals_the_cpu(dev, impl):
+    from crdt_tpu_torch import OrswotBatch
+    from crdt_tpu_torch.parallel import anti_entropy
+
+    planes = _fleets(7, 4096, 64, 16, 2, 8, dev, deferred_frac=0.25)
+    _build.reset_launch_counts()
+    got, rounds = anti_entropy(OrswotBatch(*planes), impl=impl)
+    launches = _build.launch_counts()
+    want, cpu_rounds = anti_entropy(OrswotBatch(*(x.cpu() for x in planes)), impl=impl)
+    assert rounds == cpu_rounds
+    _equal([x.cpu() for x in _planes_of(got)], _planes_of(want))
+    # the fold's R - 1 merges and a self-merge per later round, all pairwise
+    assert launches["orswot_merge"] >= 7 + rounds - 1
+    assert launches["orswot_fold_aligned"] == launches["orswot_fold"] == 0

@@ -22,6 +22,8 @@ def test_import_leaves_jax_package_out():
         "import sys\n"
         "import crdt_tpu_torch\n"
         "import crdt_tpu_torch.ops.orswot_fold_aligned, crdt_tpu_torch.utils.testdata\n"
+        "import crdt_tpu_torch.parallel.collective, crdt_tpu_torch.parallel.multihost\n"
+        "import crdt_tpu_torch.tools.multihost\n"
         "bad = sorted(m for m in sys.modules if m == 'crdt_tpu' or m.startswith('crdt_tpu.'))\n"
         "assert not bad, bad\n"
     )
@@ -56,12 +58,14 @@ def test_scan_covers_every_module():
             "stability.py", "heat.py", "kernels.py", "capacity.py", "workload.py",
             "session.py", "events.py", "latency.py", "transport.py", "faults.py",
             "membership.py", "gossip.py", "checkpoint.py", "wal.py", "snapshot.py",
-            "recover.py", "manager.py"} <= names
+            "recover.py", "manager.py", "collective.py", "mesh.py", "multihost.py"} <= names
+    assert REPO / "crdt_tpu_torch" / "tools" / "multihost.py" in PORT_FILES
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "from_numpy", "zeros", "build_fleet_planes",
                                    "map_zeros", "map_from_scalar", "build_tree",
-                                   "heat_tracker", "device_memory", "recover"])
+                                   "heat_tracker", "device_memory", "recover", "make_mesh",
+                                   "make_multihost_mesh"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(entry, monkeypatch):
     from crdt_tpu_torch import (
         CapacityTracker, CrdtConfig, DeviceUnavailableError, HeatTracker, MapBatch, MVRegKernel,
@@ -69,6 +73,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(entry, monkeypatc
     )
     from crdt_tpu_torch.device import resolve_device
     from crdt_tpu_torch.durable import recover
+    from crdt_tpu_torch.parallel import make_mesh, make_multihost_mesh
     from crdt_tpu_torch.sync import build_tree
     from crdt_tpu_torch.utils.testdata import build_fleet_planes, fleet_columns
 
@@ -93,6 +98,8 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(entry, monkeypatc
         "heat_tracker": lambda: HeatTracker(),
         "device_memory": lambda: CapacityTracker().sample_device_memory(),
         "recover": lambda: recover(REPO / "no-such-durable-dir"),
+        "make_mesh": lambda: make_mesh({"replicas": 1}),
+        "make_multihost_mesh": lambda: make_multihost_mesh({"replicas": 1}),
     }
     with pytest.raises(DeviceUnavailableError, match="cuda"):
         calls[entry]()
