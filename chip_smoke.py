@@ -46,8 +46,9 @@ Phases, in order; any failure ends the run with a nonzero exit:
 6b. wire routes — one chunk of those fleets through ``from_wire`` and
    ``to_scalar`` by both routes (dense planes, or COO columns expanded
    and compacted on the card), timed, with the bytes each copies to the
-   card; both must give the blobs back, and the COO planes must equal the
-   dense planes' self-merge (ascending-id slots);
+   card; both must give the blobs back (``to_wire``, every object;
+   ``to_binary`` of ``to_scalar``, every 8th), and the COO planes must
+   equal the dense planes' self-merge (ascending-id slots);
 7. op path — a 1.25M-object fleet (A=64, M=16, D=2, u32) built on the
    card and self-merged; 32 frames of 65,536 ops (~90% adds, ~10%
    removes, some ahead of the clock, one frame early) folded by
@@ -264,15 +265,42 @@ Phases, in order; any failure ends the run with a nonzero exit:
    group; the group is destroyed at the end.  One ``collectives`` JSON
    line carries the numbers.
 
-Launch counts are reset just before phase 4 and read just after, and
-again around phases 5, 6, 6b, 7, 8, 9 and 11, around phase 12's sessions,
-around phase 13's rounds and reads, around phase 14's rounds, writes,
-kill and rejoin, around phase 15's 20 chunks, and around each step of phase 10's
-main path (the replicas' plunger, the
-session step, the GC pass and the truncate; the checks between them are
-not counted).  The last lines are the kernel table (JSON), the card's
-name and power limit, and ``{"ok": true, "device": ...}``.  Needs one
-CUDA card; exits nonzero without one.
+16. the mesh-sharded fleet — at world size one over NCCL: a Zipf 1.1
+   history of 4,096 writes into a ``HeatTracker`` (its subtree totals
+   held against the history's bincount), binned at 4,096-row subtrees;
+   ``choose_layout`` prices the granule for 8 shards; the north-star
+   fleet P (A=64, M=16, D=2, u32, 1.25M objects) and Q, P with one add on
+   a seeded 1% of the rows, laid out by ``ShardedBatch.shard``;
+   ``anti_entropy_step`` (timed by CUDA events), whose digests, version
+   vector and live members must equal ``digest_of``, ``version_vector``
+   and the live slots of K2's merge of P and Q; then Q diverged on 1% of
+   shard 3's rows only and repaired by ``ClusterNode.sync_shard_subset``
+   between two in-process nodes (1 shard synced, 7 skipped, the rows
+   diverged, the digests equal after), timed beside ``sync_pair`` of the
+   same pair; member sharding: 62,500 sets of up to 64 members (renamed so
+   that each of 4 member shards holds at most 16 of a row, deferred
+   removes on one replica) partitioned, merged by ``member_sharded_merge``
+   (K2 at M=16), an add on every set by ``sharded_apply_add``,
+   ``rebroadcast_clock`` and a self-merge, ``unpartition_dense`` against
+   the same steps on the dense M=64 planes by the plain merge (digests,
+   sorted ids and clocks equal); ``MeshSnapshotStore`` at 8 shards writes
+   and restores the first 250,000 objects of a fresh fleet under the
+   durable directory (restored digests and the manifest's roots equal the
+   written ones).  Every launch of the merge kernel is held against
+   ``merge_reference``.  One ``mesh`` JSON line carries the numbers.
+
+Launch counts are reset just before phase 4 and read just after, around
+phase 5, around each of phases 6 to 16 (and within phase 10 around each
+step of its main path: the replicas' plunger, the session step, the GC
+pass and the truncate; within phases 12 to 14 around their sessions,
+rounds, writes, kill and rejoin; the checks between them are not
+counted).  Every phase prints one JSON line (``environment``,
+``main_path``, ``wire``, ``wire_routes``, ``op``, ``flat_types``,
+``maps``, ``sync_gc``, ``reads``, ``cluster``, ``gossip``, ``durable``,
+``collectives``, ``mesh``) with its wall seconds, peak device memory and
+the card.  The last lines are the kernel table (JSON), the card's name
+and power limit, and ``{"ok": true, "device": ...}``.  Needs one CUDA
+card; exits nonzero without one.
 """
 
 from __future__ import annotations
@@ -280,14 +308,84 @@ from __future__ import annotations
 import dataclasses
 import faulthandler
 import gc
+import hashlib
 import json
 import os
 import re
+import resource
+import shutil
+import socket
 import subprocess
 import sys
-import time
+import tempfile
+import threading
+import urllib.error
+import urllib.request
+from time import perf_counter as now
 
 import numpy as np
+import torch
+import torch.distributed as dist
+
+from crdt_tpu_torch import (
+    _build, CapacityTracker, ClusterNode, ConflictingMarker, CrdtConfig, GcEngine,
+    GCounterBatch, GcPolicy, GSetBatch, HeatTracker, JoinExecutor, JoinStats,
+    kernel_observatory, LWWRegBatch, MapBatch, MapKernel, mesh, MVRegBatch, MVRegKernel,
+    OrswotBatch, OrswotKernel, PipelinedOpLoop, PipelinedWireLoop, PNCounterBatch,
+    StabilityTracker, sync_pair, SyncSession, Universe, VClockBatch, WireFormatError,
+)
+from crdt_tpu_torch.batch import wirebulk
+from crdt_tpu_torch.batch.vclock_batch import row_to_vclock
+from crdt_tpu_torch.cluster import (
+    ALIVE, arm_crashes, CrashPlan, disarm_crashes, FaultPlan, FaultyTransport, FlappingDialer,
+    GossipScheduler, hello_accept, hello_dial, InjectedCrash, linger, Membership,
+    ResilientTransport, RetryPolicy, SUSPECT, TcpTransport,
+)
+from crdt_tpu_torch.dtypes import (
+    as_counters, bias_np, counters_to_numpy, EMPTY, h2d_bytes, ZERO64, zero_of,
+)
+from crdt_tpu_torch.durable import Durability, recover, WalWriter
+from crdt_tpu_torch.error import PeerUnavailableError
+from crdt_tpu_torch.gc import compact
+from crdt_tpu_torch.native import engine
+from crdt_tpu_torch.obs import (
+    convergence, events, FleetObservatory, heat as heat_mod, metrics, MetricsRegistry, publish,
+    stability,
+)
+from crdt_tpu_torch.obs.export import start_metrics_server
+from crdt_tpu_torch.obs.fleet import encode_snapshot, FleetSnapshot
+from crdt_tpu_torch.oplog import (
+    apply_gcounter_ops, apply_lww_ops, apply_pncounter_ops, decode_ops_frame, derive_add_ctx,
+    derive_rm_ctx, encode_ops_frame, OP_ADD, OP_DEC, OP_INC, OP_SET, OpApplier, OpBatch, OpLog,
+)
+from crdt_tpu_torch.ops import (
+    clock_ops, orswot_fold_aligned as fa, orswot_ops, orswot_tile as tile,
+)
+from crdt_tpu_torch.parallel import (
+    all_reduce_clock_join, allgather_join_gset, allgather_join_lww, allgather_join_map,
+    allgather_join_mvreg, allgather_join_orswot, anti_entropy, initialize, make_mesh,
+    make_multihost_mesh, member_sharded_merge, partition_dense, rebroadcast_clock,
+    sharded_apply_add, unpartition_dense,
+)
+from crdt_tpu_torch.parallel.collective import allgather_fleet_snapshots
+from crdt_tpu_torch.parallel.mesh import tree_leaves, tree_map
+from crdt_tpu_torch.scalar import Dir, Dot, PNOp
+from crdt_tpu_torch.scalar.orswot import Add, Rm
+from crdt_tpu_torch.scalar.vclock import VClock
+from crdt_tpu_torch.serve import (
+    admit, decode_result_frame, encode_read_request, gather, K_GCOUNTER, K_LWW, K_MAP, K_MVREG,
+    K_ORSWOT, K_PNCOUNTER, KIND_NAMES, NO_MEMBER, query, ReadRequest, ST_NOT_STABLE,
+    stability_statuses,
+)
+from crdt_tpu_torch.sync import delta, digest, tree
+from crdt_tpu_torch.sync.digest import digest_of, version_vector
+from crdt_tpu_torch.utils import checkpoint, tracing
+from crdt_tpu_torch.utils.serde import from_binary, to_binary
+from crdt_tpu_torch.utils.testdata import (
+    anti_entropy_fleets, build_fleet_planes, fleet_columns, plant_dominated_deferred,
+    random_map, random_orswot_arrays,
+)
+from crdt_tpu_torch.utils.workload import WorkloadGen
 
 SEED = 0
 # north-star shapes (BASELINE.md ★)
@@ -298,6 +396,10 @@ CHECK_N = 4096
 # phase 6 encodes chunks until WIRE_PREP_S (at least WIRE_MIN_CHUNKS); 40 s,
 # not 75 s: the chip budget's cut 6 (ROADMAP.md, section C)
 WIRE_MIN_CHUNKS, WIRE_PREP_S, WIRE_SAMPLE, WIRE_ROUNDS = 2, 40.0, 64, 2
+# cut 8 (the same run): phase 6b holds to_binary of to_scalar against the
+# blobs on every WIRE_ROUTES_STRIDE-th object (the serde oracle took ~60 s
+# of the phase's 70.7 s); to_scalar itself runs on all of them
+WIRE_ROUTES_STRIDE = 8
 # the wire loop's runs over every chunk: (label, overlap, codec team)
 WIRE_RUNS = (("overlapped", True, "all"), ("serial", False, "all"),
              ("overlapped, half team", True, "half"), ("serial", False, "all"),
@@ -316,6 +418,10 @@ FLAT_WIRE_R, FLAT_SAMPLE, FLAT_ITERS, FLAT_FRAMES, FLAT_FRAME_OPS = 2, 2048, 5, 
 # samples FLAT_MVREG_SAMPLE objects (the other folds FLAT_SAMPLE), and its
 # CPU plain-path check takes its first FLAT_MVREG_CPU objects
 FLAT_MVREG_SAMPLE, FLAT_MVREG_CPU = 256, 32_768
+# the chip budget's cut 7 (the script ran 670.5 s with phase 16 on an H100,
+# against its 600 s ground rule): the other folds' scalar checks sample
+# FLAT_FOLD_SAMPLE objects, not FLAT_SAMPLE (the op folds keep FLAT_SAMPLE)
+FLAT_FOLD_SAMPLE = 512
 # the chip budget's cut 5 (the script ran 649 s with phase 14 on an H100,
 # against its 600 s ground rule): the wire round of a fleet larger than
 # FLAT_WIRE_N objects (the 1M, 10M and 250k fleets) takes the first
@@ -352,6 +458,21 @@ def log(msg):
     print(msg, flush=True)
 
 
+def sync():
+    """Wait for the card."""
+    torch.cuda.synchronize()
+
+
+def seeded(k: int):
+    """The numpy generator of seed ``SEED + k``."""
+    return np.random.RandomState(SEED + k)
+
+
+def k2_count() -> int:
+    """The merge kernel's launches since the counts were reset."""
+    return _build.launch_counts()["orswot_merge"]
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -363,17 +484,15 @@ def card_line() -> str:
 def cuda_ms(fn, iters: int) -> float:
     """Mean device time of ``fn`` over ``iters`` calls after one warm-up,
     by CUDA events."""
-    import torch
-
     fn()
-    torch.cuda.synchronize()
+    sync()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
-    torch.cuda.synchronize()
+    sync()
     return start.elapsed_time(end) / iters
 
 
@@ -391,8 +510,6 @@ def bound_ms(in_bytes: int, out_bytes: int, ops: float):
 
 def max_abs_err(got, want) -> int:
     """Largest absolute difference over paired planes (flags included)."""
-    import torch
-
     err = 0
     for g, w in zip(got, want):
         if g.shape != w.shape:
@@ -404,24 +521,20 @@ def max_abs_err(got, want) -> int:
 
 def rows_of(x, dev):
     """Host row indices → an int64 index tensor on ``dev``."""
-    import torch
-
     return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int64)).to(dev)
 
 
 def same_planes(got, want, what: str):
-    """Raise unless every plane of batch ``got`` equals ``want``'s."""
-    import torch
-
-    for name in PLANES:
-        if not torch.equal(getattr(got, name), getattr(want, name)):
-            raise AssertionError(f"{what}: {name} differs")
+    """Raise unless every plane of batch ``got`` equals ``want``'s (on
+    ``got``'s device)."""
+    for k, (g, w) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
+        if not torch.equal(g, w.to(g.device)):
+            raise AssertionError(f"{what}: plane {k} differs")
 
 
 def star_universe():
     """The north-star shapes' identity universe (A actors, M members, D
     deferred rows)."""
-    from crdt_tpu_torch import CrdtConfig, Universe
 
     return Universe.identity(CrdtConfig.gpu_default(
         num_actors=A, member_capacity=M, deferred_capacity=D))
@@ -429,9 +542,6 @@ def star_universe():
 
 def to_dev(planes, dev):
     """Unsigned numpy planes → biased device planes (the package domain)."""
-    import torch
-
-    from crdt_tpu_torch.dtypes import bias_np
 
     return tuple(
         torch.from_numpy(np.ascontiguousarray(bias_np(x) if i in (0, 2, 4) else x)).to(dev)
@@ -446,7 +556,6 @@ def stack_np(reps):
 def star_planes(rng, dev, n: int = CHUNK, r: int = R):
     """``r`` seeded north-star replica fleets of ``n`` objects, built on
     ``dev`` as biased ``[r, n, ...]`` planes."""
-    from crdt_tpu_torch.utils.testdata import build_fleet_planes, fleet_columns
 
     cols = fleet_columns(rng, n, A, M, D, r, base=BASE, novel=NOVEL, deferred_frac=DEFERRED_FRAC)
     return build_fleet_planes(cols, a=A, m_cap=M, d=D, base=BASE, novel=NOVEL, device=dev)
@@ -469,8 +578,6 @@ def full_range(rng, planes):
 def shifted(t):
     """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
     boundary: the kernels must stage it by per-lane cp.async."""
-    import torch
-
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
     view = buf[1:].view(t.shape)
     view.copy_(t)
@@ -483,12 +590,8 @@ def shifted(t):
 def check_kernels(dev):
     """Each kernel against its plain version on the card; returns the
     largest difference seen per kernel (0 is required)."""
-    import torch
 
-    from crdt_tpu_torch.ops import orswot_fold_aligned as fa, orswot_tile as tile
-    from crdt_tpu_torch.utils.testdata import anti_entropy_fleets, random_orswot_arrays
-
-    rng = np.random.RandomState(SEED)
+    rng = seeded(0)
     worst = {name: 0 for name in REPLACES}
     over_seen = {"member": 0, "deferred": 0, "union": 0}
 
@@ -568,8 +671,7 @@ def check_kernels(dev):
             raise AssertionError(f"{name}: prebiased=False returned {got[0].dtype}")
         back = tile.to_kernel_domain(got[:5]) + (got[5],)
         cmp(name, back, biased_call(), "prebiased round trip")
-    torch.cuda.synchronize()
-    log(f"overflow rows flagged (forced): {over_seen}")
+    sync()
     check_routes(dev, rng, cmp)
     return worst
 
@@ -581,8 +683,6 @@ def check_routes(dev, rng, cmp):
     for widths too wide for shared memory) and through each alignment
     path, K1 and K3 with the plunger on and off, bit for bit against their
     plain versions; raises unless every combination was taken."""
-    from crdt_tpu_torch.ops import orswot_fold_aligned as fa, orswot_tile as tile
-    from crdt_tpu_torch.utils.testdata import anti_entropy_fleets, random_orswot_arrays
 
     seen = {"orswot_fold_aligned": set(), "orswot_merge": set(), "orswot_fold": set()}
 
@@ -714,11 +814,6 @@ def check_routes(dev, rng, cmp):
     for name, got in seen.items():
         if got != want[name]:
             raise AssertionError(f"{name}: instantiation x route combinations taken {got}")
-    log("  K1, K2 and K3: every instantiation by both copy routes and both alignment paths "
-        "bit-equal to the plain versions (A=37 M=5 D=3, u_cap=32, M=32 u_cap=16, n=3, "
-        "ragged-N views, unaligned copies, duplicate ids, duplicate live ids; K3 also M=8 "
-        "into m_cap=16, R=1 and forced overflow, plunger on and off), K2's and K3's direct "
-        "routes at A=256 M=64")
 
 
 # Integer operations per actor column of one staged merge
@@ -741,10 +836,6 @@ def k3_ops(st, m_cap: int, d_cap: int, plunger: bool = True) -> int:
     a-slots, b-only slots, objects and deferred rows this data gives that
     step, over the actor columns; the steps' accumulators come from the
     plain fold."""
-    import torch
-
-    from crdt_tpu_torch.dtypes import EMPTY
-    from crdt_tpu_torch.ops import orswot_tile as tile
 
     a = st[0].shape[-1]
     n = st[0].shape[1]
@@ -778,9 +869,6 @@ def time_kernels(dev, planes, worst):
     ``[4, 62500, …]`` tree level — bit for bit, raising ``worst`` to the
     largest difference seen; then kernel and plain times with each
     kernel's bound."""
-    import torch
-
-    from crdt_tpu_torch.ops import orswot_fold_aligned as fa, orswot_tile as tile
 
     st = planes
     pair = tuple(x[0] for x in st), tuple(x[1] for x in st)
@@ -821,17 +909,16 @@ def time_kernels(dev, planes, worst):
         if err != 0:
             raise AssertionError(f"{name} disagrees with its plain version on {what}: {err}")
         worst[name] = max(worst[name], err)
-        log(f"  {name}: bit-equal to its plain version on {what}")
     del level
     torch.cuda.empty_cache()
     # K3's device memory per call above its inputs: the outputs only, where
     # the first design also allocated its accumulator scratch (2 states
     # per object)
-    torch.cuda.synchronize()
+    sync()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     got = specs["orswot_fold"][0]()
-    torch.cuda.synchronize()
+    sync()
     peak = torch.cuda.max_memory_allocated() - before
     del got
     log(f"  orswot_fold: peak device memory per call {peak / 1e6:.1f} MB above its inputs "
@@ -842,8 +929,6 @@ def time_kernels(dev, planes, worst):
         torch.cuda.empty_cache()
         b_ms, by = bound_ms(in_bytes, out_state, ops)
         rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by}
-        log(f"  {name}: {ms:.4f} ms kernel, {plain_ms:.3f} ms plain, bound {b_ms:.4f} ms "
-            f"({by}; {in_bytes + out_state} B, {ops:.4g} integer operations)")
     return rows
 
 
@@ -851,22 +936,17 @@ def time_kernels(dev, planes, worst):
 
 
 def main_path(dev, n_chunks: int):
-    import torch
-
-    from crdt_tpu_torch import JoinExecutor, OrswotBatch
-    from crdt_tpu_torch.ops import orswot_ops, orswot_tile as tile
-
-    rng = np.random.RandomState(SEED + 1)
+    rng = seeded(1)
     uni = star_universe()
     fold_ms = []
     first = None
     for c in range(n_chunks):
         planes = star_planes(rng, dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        sync()
+        t0 = now()
         out = orswot_ops.fold_merge(*planes, M, D, impl="pallas", u_cap=U_CAP)
-        torch.cuda.synchronize()
-        fold_ms.append((time.perf_counter() - t0) * 1e3)
+        sync()
+        fold_ms.append((now() - t0) * 1e3)
         if out[1].shape != (CHUNK, M) or out[2].shape != (CHUNK, M, A):
             raise AssertionError(f"chunk {c}: bad output shapes")
         if bool(out[5].any()):
@@ -885,8 +965,6 @@ def main_path(dev, n_chunks: int):
         err = max_abs_err(got[:5], k1[:5])
         if err:
             raise AssertionError(f"union-aligned fold != {name} (max diff {err})")
-    log(f"  first chunk: union-aligned fold == sequential pairwise fold == fold kernel "
-        f"(all {CHUNK} rows, no overflow)")
 
     # the user entry point: JoinExecutor over eight OrswotBatch fleets (tree, K2)
     fleets = [OrswotBatch(*(x[r] for x in planes)) for r in range(R)]
@@ -900,17 +978,14 @@ def main_path(dev, n_chunks: int):
                                                   joined.d_ids, joined.d_clocks))).value_sets(uni)
     if got_sets != want_sets:
         raise AssertionError("JoinExecutor value_sets != union-aligned fold on the sample")
-    log(f"  JoinExecutor (tree) == union-aligned fold on {CHECK_N} sampled objects "
-        "(clock, ids, value_sets)")
     return fold_ms
 
 
 def regrow_ladder(dev):
     """Four fleets whose objects hold 2 members each, all distinct: the
     join needs 8 member slots and starts at 2, so it regrows twice."""
-    from crdt_tpu_torch import CrdtConfig, JoinExecutor, JoinStats, OrswotBatch, Universe
 
-    rng = np.random.RandomState(SEED + 2)
+    rng = seeded(2)
     n, fleets_np = CHECK_N, []
     base = rng.randint(0, 1 << 20, size=n)
     for f in range(4):
@@ -935,7 +1010,7 @@ def regrow_ladder(dev):
 # -- phase 6 -------------------------------------------------------------------
 
 
-def wire_leg(dev, card: str):
+def wire_leg(dev):
     """Blobs → fold on the card → blobs over the north-star chunks; returns
     the merge kernel's launches by the wire loop and the first chunk's R
     blob lists.
@@ -950,31 +1025,22 @@ def wire_leg(dev, card: str):
     the overlapped pipeline with the codec's team at half the host's
     cores, so that the parse and the encode running at once share the
     cores instead of each taking them all."""
-    import os
 
-    import torch
-
-    from crdt_tpu_torch import OrswotBatch, PipelinedWireLoop, WireFormatError, _build
-    from crdt_tpu_torch.batch import wirebulk
-    from crdt_tpu_torch.native import engine
-    from crdt_tpu_torch.ops import orswot_ops
-    from crdt_tpu_torch.utils.serde import from_binary, to_binary
-
-    rng = np.random.RandomState(SEED + 4)
+    rng = seeded(4)
     uni = star_universe()
     loop = PipelinedWireLoop(uni, device=dev)
     to_wire_s, bytes_in, bytes_out = 0.0, 0, 0
     wirebulk.reset_wire_counts()
     n_max = N_TOTAL // CHUNK
-    t_phase = time.perf_counter()
+    t_phase = now()
     fleets, oracles = [], []
     while len(fleets) < n_max:
         c = len(fleets)
         planes = star_planes(rng, dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        sync()
+        t0 = now()
         rep_blobs = [OrswotBatch(*(x[r] for x in planes)).to_wire(uni) for r in range(R)]
-        to_wire_s += time.perf_counter() - t0
+        to_wire_s += now() - t0
         bytes_in += sum(len(b) for blobs in rep_blobs for b in blobs)
         # the byte oracle: the union-aligned fold of the same planes
         k1 = orswot_ops.fold_merge(*planes, M, D, impl="pallas", u_cap=U_CAP)
@@ -1000,28 +1066,29 @@ def wire_leg(dev, card: str):
         torch.cuda.empty_cache()
         fleets.append(rep_blobs)
         oracles.append(want)
-        if len(fleets) >= WIRE_MIN_CHUNKS and time.perf_counter() - t_phase > WIRE_PREP_S:
+        if len(fleets) >= WIRE_MIN_CHUNKS and now() - t_phase > WIRE_PREP_S:
             break
     chunks = len(fleets)
-    log(f"  {chunks} chunks encoded and their oracles checked in "
-        f"{time.perf_counter() - t_phase:.1f} s")
-
-    profile_loop(loop, fleets[0], card)  # also sizes the loop's buffers
+    rep = {"chunks": chunks, "prep_s": now() - t_phase, "runs": [],
+           "bytes_in_per_object_replica": bytes_in / (chunks * CHUNK * R),
+           "bytes_out_per_object": bytes_out / (chunks * CHUNK),
+           "to_wire_s_per_chunk": to_wire_s / chunks,
+           "cores": [os.cpu_count(), len(os.sched_getaffinity(0))],
+           # one more run under the profiler, which also sizes the loop's buffers
+           "profile": profiled(lambda: loop.run([fleets[0]] * WIRE_ROUNDS, overlap=True))}
     rounds = [rep_blobs for rep_blobs in fleets for _ in range(WIRE_ROUNDS)]
     want = [out for out in oracles for _ in range(WIRE_ROUNDS)]
     half = max(1, len(os.sched_getaffinity(0)) // 2)
-    stages = ("parse", "h2d", "fold", "stall", "d2h", "encode")
-    sums: dict = {}
     k2_launches = 0
     for label, overlap, threads in WIRE_RUNS:
         threads = half if threads == "half" else 0
         engine.set_threads(threads)
-        before = _build.launch_counts()["orswot_merge"]
+        before = k2_count()
         try:
             res = loop.run(rounds, overlap=overlap)
         finally:
             engine.set_threads(0)
-        k2 = _build.launch_counts()["orswot_merge"] - before
+        k2 = k2_count() - before
         if k2 < R * len(rounds):
             raise AssertionError(f"wire loop launched the merge kernel {k2} times, "
                                  f"< R={R} per round")
@@ -1035,13 +1102,8 @@ def wire_leg(dev, card: str):
             if got != exp:
                 raise AssertionError(f"{label} run, round {k}: wire loop != "
                                      "to_wire(union-aligned fold)")
-        per = sums.setdefault(label, dict.fromkeys(stages + ("e2e",), 0.0))
-        for k in stages:
-            per[k] += res["stage_s"][k]
-        per["e2e"] += res["e2e_s"]
-        per["runs"] = per.get("runs", 0) + 1
-        log(f"  {label} run ({len(rounds)} rounds, codec team "
-            f"{threads or 'all cores'}): e2e {res['e2e_s']:.4f} s [{card}]")
+        # each run: its mode, codec team, seconds end to end and by stage
+        rep["runs"].append([label, threads, res["e2e_s"], res["stage_s"]])
         del res
     counts = wirebulk.wire_counts()
     for direction, c in counts.items():
@@ -1050,102 +1112,76 @@ def wire_leg(dev, card: str):
     blob = OrswotBatch.zeros(1, uni, device=dev).to_wire(uni)[0]
     try:
         OrswotBatch.from_wire([blob[:-1]], uni, device=dev)
-    except WireFormatError as e:
-        log(f"  truncated blob: WireFormatError ({e})")
+    except WireFormatError:
+        pass
     else:
         raise AssertionError("a truncated blob did not raise WireFormatError")
-
-    objects = chunks * CHUNK
-    log(f"  {chunks} chunks of {CHUNK} objects, R={R}: every check passed (every run's "
-        f"blobs == to_wire(union-aligned fold) == the scalar fold on {WIRE_SAMPLE} sampled "
-        f"objects per chunk, from_wire(to_wire(x)) == x, native fraction 1.0 both ways: "
-        f"{counts})")
-    log(f"  wire bytes per object: {bytes_in / (objects * R):.1f} in (per replica), "
-        f"{bytes_out / objects:.1f} out; to_wire of the R input fleets "
-        f"{to_wire_s / chunks:.4f} s per chunk [{card}]")
-    log(f"  host cores: {os.cpu_count()} online, {len(os.sched_getaffinity(0))} in this "
-        f"process's affinity; split team {half}")
-    for label, per in sums.items():
-        n_rounds = per.pop("runs") * len(rounds)
-        per = {k: v / n_rounds for k, v in per.items()}
-        log(f"  loop {label}: per round of a chunk (mean of {n_rounds} rounds) "
-            + ", ".join(f"{k} {v:.4f} s" for k, v in per.items())
-            + f"; {CHUNK * R / per['e2e'] / 1e6:.3f}M merges/s end to end [{card}]")
-    return k2_launches, fleets[0]
+    rep.update(rounds_per_run=len(rounds), half_team=half, wire_counts=counts,
+               k2_launches=k2_launches)
+    return k2_launches, rep, fleets[0]
 
 
-def profile_loop(loop, rep_blobs, card: str):
-    """One more run of the loop under ``torch.profiler``: the device time of
-    its kernels and of its copies against the run's wall time."""
-    profiled(lambda: loop.run([rep_blobs] * WIRE_ROUNDS, overlap=True),
-             f"{WIRE_ROUNDS} rounds of one chunk, overlapped", card)
-
-
-def profiled(run, label: str, card: str):
+def profiled(run, ref_ms=None) -> dict:
     """``run()`` under ``torch.profiler``: the device time of its kernels
-    and of its copies against its wall time.  A measurement only: a
-    profiler that sees no device time is logged, not fatal."""
-    import torch
+    and of its copies against its wall time (or ``ref_ms``, the same work
+    timed by CUDA events), and the top kernels and host ops by device
+    time.  A measurement only: a profiler that sees no device time gives
+    ``None`` shares (not measured), not a failure."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
+    sync()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+        t0 = now()
         run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        sync()
+        wall = now() - t0
+    ev = prof.key_averages()
     # device-side events only: a host op (aten::copy_) also reports the
     # device time of the copy it started
-    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                  key=lambda r: -r[1])
-    copies = sum(t for k, t, _ in rows if "memcpy" in k.lower() or "memset" in k.lower())
-    kernels = sum(t for _, t, _ in rows) - copies
-    if not rows:
-        log("  profiler: no device time recorded (not measured)")
-        return
-    log(f"  profiler ({label}): wall {wall:.4f} s, device "
-        f"kernels {kernels / 1e6:.4f} s ({kernels / 1e6 / wall:.2%} of wall), copies "
-        f"{copies / 1e6:.4f} s ({copies / 1e6 / wall:.2%}); SMs idle "
-        f"{1 - kernels / 1e6 / wall:.2%} of the wall time [{card}]")
-    for key, t, count in rows[:8]:
-        log(f"    {t / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+    dev_ev = [e for e in ev if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    copies = sum(e.self_device_time_total for e in dev_ev
+                 if "memcpy" in e.key.lower() or "memset" in e.key.lower()) / 1e6
+    kernels = sum(e.self_device_time_total for e in dev_ev) / 1e6 - copies
+    ref = ref_ms / 1e3 if ref_ms else wall
+
+    def top(es):
+        es = sorted(es, key=lambda e: -e.self_device_time_total)[:8]
+        return [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in es]
+
+    return {"wall_s": wall, "kernels_s": kernels, "copies_s": copies,
+            "idle_share": 1 - kernels / ref if dev_ev else None,
+            "kernel_launches": sum(e.count for e in dev_ev), "top_kernels": top(dev_ev),
+            "top_ops": top([e for e in ev if e.device_type == DeviceType.CPU
+                            and e.self_device_time_total > 0])}
 
 
 # -- phase 6b ------------------------------------------------------------------
 
 
-def wire_routes(dev, card: str, rep_blobs):
+def wire_routes(dev, rep_blobs):
     """``from_wire`` and ``to_scalar`` by both routes on one chunk of the
     wire leg's fleets: dense planes copied whole, or COO columns that the
     card expands (``via_device=True``, the JAX package's route on an
     accelerator) and compacts."""
-    import torch
-
-    from crdt_tpu_torch import OrswotBatch
-    from crdt_tpu_torch.dtypes import h2d_bytes
-    from crdt_tpu_torch.utils.serde import to_binary
 
     uni = star_universe()
     blobs = rep_blobs[0]  # replica 0 holds the planted deferred rows
-    batches = {}
+    batches, rep = {}, {"blob_bytes": sum(map(len, blobs))}
     for via in (False, True):
-        torch.cuda.synchronize()
-        b0, t0 = h2d_bytes(), time.perf_counter()
+        sync()
+        b0, t0 = h2d_bytes(), now()
         batches[via] = OrswotBatch.from_wire(blobs, uni, device=dev, via_device=via)
-        torch.cuda.synchronize()
-        log(f"  from_wire(via_device={via}): {time.perf_counter() - t0:.4f} s, "
-            f"{h2d_bytes() - b0} B host->device for {len(blobs)} objects "
-            f"({sum(len(b) for b in blobs)} B of blobs) [{card}]")
+        sync()
+        rep[f"from_wire_via_{via}"] = [now() - t0, h2d_bytes() - b0]
     for via, batch in batches.items():
         if batch.to_wire(uni) != blobs:
             raise AssertionError(f"to_wire(from_wire(blobs, via_device={via})) != blobs")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        sync()
+        t0 = now()
         states = batch.to_scalar(uni, via_device=via)
-        log(f"  to_scalar(via_device={via}): {time.perf_counter() - t0:.4f} s [{card}]")
-        if [to_binary(x) for x in states] != blobs:
+        rep[f"to_scalar_via_{via}_s"] = now() - t0
+        if [to_binary(x) for x in states[::WIRE_ROUTES_STRIDE]] != blobs[::WIRE_ROUTES_STRIDE]:
             raise AssertionError(f"to_binary(to_scalar(via_device={via})) != blobs")
     # replica 1 has no deferred rows, so its states are fixpoints of the
     # merge and the self-merge only puts member slots in ascending-id order
@@ -1153,8 +1189,7 @@ def wire_routes(dev, card: str, rep_blobs):
     coo = OrswotBatch.from_wire(rep_blobs[1], uni, device=dev, via_device=True)
     same_planes(coo, dense.merge(dense), "from_wire(via_device=True) against the dense "
                 "route's self-merge")
-    log(f"  both routes: to_wire byte-equal to the blobs, to_scalar equal to them too; the "
-        f"COO route's planes == the dense route's K2 self-merge ({CHUNK} objects)")
+    return None, rep
 
 
 # -- phase 7 -------------------------------------------------------------------
@@ -1168,8 +1203,6 @@ def op_traffic(fleet, rng):
     no deferred row, 5% of those objects removed twice (a second round;
     deferral stays within D=2).  Returns ``(frames, [(adds, removes)])``;
     frame ``OP_SWAP + 1`` is delivered before its predecessor."""
-    from crdt_tpu_torch.dtypes import as_counters
-    from crdt_tpu_torch.oplog import OpBatch, derive_add_ctx, derive_rm_ctx, encode_ops_frame
 
     n, clock = fleet.clock.shape[0], fleet.clock.clone()
     ids = fleet.ids.cpu().numpy()  # canonical: live slots first
@@ -1204,12 +1237,9 @@ def op_traffic(fleet, rng):
 def scalar_oracle(fleet, causal, sample, uni):
     """The sampled objects' states by the port's scalar engine: their
     initial states, then each op on them, one at a time, in causal order."""
-    from crdt_tpu_torch import OrswotBatch
-    from crdt_tpu_torch.scalar.orswot import Add, Rm
-    from crdt_tpu_torch.scalar.vclock import Dot, VClock
 
     rows = rows_of(sample, fleet.device)
-    states = OrswotBatch(*(getattr(fleet, k)[rows] for k in PLANES)).to_scalar(uni)
+    states = flat_rows(fleet, rows).to_scalar(uni)
     where = {int(o): k for k, o in enumerate(sample)}
     for adds, rms in causal:
         for r in np.nonzero(np.isin(adds.obj, sample))[0].tolist():
@@ -1221,88 +1251,31 @@ def scalar_oracle(fleet, causal, sample, uni):
     return states
 
 
-def check_self_merge(src, out, what: str):
-    """``out = src.merge(src)``, the merge kernel's full-size output,
-    against the plain merge of the same rows, ``CHUNK`` objects at a time
-    (the merge is row-independent); any difference fails."""
-    from crdt_tpu_torch.ops import orswot_tile as tile
-
-    n = src.clock.shape[0]
-    for s in range(0, n, CHUNK):
-        rows = tuple(getattr(src, k)[s:s + CHUNK] for k in PLANES)
-        want = tile.merge_reference(*rows, *rows, M, D)
-        got = tuple(getattr(out, k)[s:s + CHUNK] for k in PLANES)
-        if bool(want[5].any()) or max_abs_err(got, want[:5]):
-            raise AssertionError(f"{what}: the merge kernel != its plain version at objects {s}+")
-    log(f"  {what}: the merge kernel's [{n}, ...] output == its plain version, bit for bit")
-
-
-def op_bodies(fleet, causal, card: str):
-    """Device times (CUDA events) of the op path's plain-torch bodies on
-    frame 0's ops at the fleet's size, beside their bytes bound."""
-    import torch
-
-    from crdt_tpu_torch.dtypes import as_counters, zero_of
-    from crdt_tpu_torch.ops import orswot_ops
-    from crdt_tpu_torch.oplog.apply import _scatter_max
-    from crdt_tpu_torch.oplog.records import _derive_body
-
-    dev, dt = fleet.device, fleet.clock.dtype
-    (adds, rms), planes = causal[0], tuple(getattr(fleet, k) for k in PLANES)
-    obj, actor, cnt = rows_of(adds.obj, dev), rows_of(adds.actor, dev), as_counters(adds.counter, dt, dev)
-    member = torch.full((fleet.clock.shape[0],), -2, dtype=torch.int32, device=dev)
-    member[rows_of(rms.obj, dev)] = torch.from_numpy(rms.member).to(dev)
-    rm_clock = torch.full_like(fleet.clock, zero_of(dt))
-    rm_clock[rows_of(rms.obj, dev)] = as_counters(rms.rm_clocks, dt, dev)
-    rest = nbytes(planes[1:])  # the planes a whole-fleet body reads and writes
-    for name, fn, moved in (
-        ("derive_add_ctx (sort, [B, A] cumsum, gathers)",
-         lambda: _derive_body(fleet.clock, obj, actor), obj.numel() * (16 + 8 * A)),
-        ("scatter-max of the adds (clock, dots; slot 0)",
-         lambda: (_scatter_max(fleet.clock, obj * A + actor, cnt),
-                  _scatter_max(fleet.dots, obj * (M * A) + actor, cnt)),
-         2 * nbytes((fleet.clock, fleet.dots))),
-        ("deferred replay (_apply_deferred, whole fleet)",
-         lambda: orswot_ops._apply_deferred(*planes), nbytes(planes) + rest),
-        ("remove round (apply_remove, whole fleet)",
-         lambda: orswot_ops.apply_remove(*planes, rm_clock, member),
-         nbytes(planes) + rest + nbytes((rm_clock, member))),
-    ):
-        ms = cuda_ms(fn, 5)
-        log(f"  {name}: {ms:.3f} ms, bound {moved / HBM_BYTES_PER_S * 1e3:.3f} ms "
-            f"(bytes, {moved} B) [{card}]")
-
-
-def op_path(dev, card: str):
+def op_path(dev):
     """The op-based write path at full width: op frames folded into a
     1.25M-object fleet through ``PipelinedOpLoop`` (O S S O from the same
     fleet), one profiled run, re-delivery, the scalar engine on a sample,
     a ``to_coo``/``from_coo`` round trip, and both self-merges against
     the plain merge.  Returns the merge kernel's launches of the phase."""
-    import torch
 
-    from crdt_tpu_torch import OrswotBatch, PipelinedOpLoop, _build
-    from crdt_tpu_torch.utils.serde import to_binary
-
-    rng = np.random.RandomState(SEED + 7)
+    rng = seeded(7)
     uni = star_universe()
-    t0 = time.perf_counter()
+    t0 = now()
     built = OrswotBatch(*(x[0] for x in star_planes(rng, dev, N_TOTAL, 1)))
-    fleet = built.merge(built)  # canonical: ascending-id slots, deferred replayed
-    if _build.launch_counts()["orswot_merge"] == 0:
-        raise AssertionError("the fleet's self-merge did not launch the merge kernel")
-    torch.cuda.synchronize()
-    log(f"  fleet: {N_TOTAL} objects, {nbytes([getattr(fleet, k) for k in PLANES]) / 1e9:.3f} GB "
-        f"of planes on the card, built and self-merged in {time.perf_counter() - t0:.1f} s")
-    check_self_merge(built, fleet, "the fleet's self-merge")
+    with K2Launches() as k2:  # the self-merges, each launch against its plain version
+        fleet = built.merge(built)  # canonical: ascending-id slots, deferred replayed
+        sync()
+        rep = {"build_s": now() - t0, "runs": []}
+        if not k2.seen:
+            raise AssertionError("the fleet's self-merge did not launch the merge kernel")
+        k2.check("the fleet's self-merge")
     del built
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
+    t0 = now()
     frames, causal = op_traffic(fleet, rng)
     n_ops = sum(len(a) + len(r) for a, r in causal)
-    log(f"  traffic: {len(frames)} frames, {n_ops} ops ({sum(len(r) for _, r in causal)} "
-        f"removes), {sum(map(len, frames)) / n_ops:.2f} wire B/op, frame {OP_SWAP + 1} "
-        f"before frame {OP_SWAP}; minted and encoded in {time.perf_counter() - t0:.1f} s")
+    rep.update(traffic_s=now() - t0, ops=n_ops, removes=sum(len(r) for _, r in causal),
+               wire_bytes_per_op=sum(map(len, frames)) / n_ops)
 
     final = None
     for overlap in (True, False, False, True):  # each mode both before and after the other
@@ -1310,64 +1283,51 @@ def op_path(dev, card: str):
         torch.cuda.reset_peak_memory_stats()
         out, st = loop.run(fleet, frames, overlap=overlap)
         c = loop.applier.counts
-        log(f"  {st['pipeline']} run: {n_ops / st['e2e_s'] / 1e6:.3f}M ops/s end to end; {st}; "
-            f"applier {c}, {c['rm_rounds'] / len(frames):.2f} remove rounds per frame; peak "
-            f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
+        rep["runs"].append({"ops_per_s": n_ops / st["e2e_s"], **st, "applier": c,
+                            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
         if st["applied"] != n_ops or st["still_parked"] or not 0 < c["parked"] == c["released"]:
             raise AssertionError(f"op loop counts: {st}, {c}")
         final = out if final is None else final
         same_planes(out, final, f"{st['pipeline']} run against the first run")
         del out
-    profiled(lambda: PipelinedOpLoop(uni).run(fleet, frames, overlap=True),
-             f"{len(frames)} op frames, overlapped", card)
+    rep["profile"] = profiled(lambda: PipelinedOpLoop(uni).run(fleet, frames, overlap=True))
     again, st = PipelinedOpLoop(uni).run(final, frames)
     same_planes(again, final, "re-delivering every frame")
     if st["duplicates"] != sum(len(a) for a, _ in causal) or st["still_parked"]:
         raise AssertionError(f"re-delivery applied adds again: {st}")
     del again
-    log(f"  re-delivery of every frame: planes unchanged ({st['duplicates']} duplicate adds)")
 
     touched = np.unique(np.concatenate([a.obj for a, _ in causal] + [r.obj for _, r in causal]))
     sample = np.sort(rng.choice(touched, OP_SAMPLE, replace=False))
     want = [to_binary(s) for s in scalar_oracle(fleet, causal, sample, uni)]
     rows = rows_of(sample, dev)
-    got = OrswotBatch(*(getattr(final, k)[rows] for k in PLANES)).to_scalar(uni)
+    got = flat_rows(final, rows).to_scalar(uni)
     if [to_binary(s) for s in got] != want:
         raise AssertionError("op loop != the scalar engine on the sampled objects")
-    log(f"  {OP_SAMPLE} sampled touched objects == the scalar engine applying the same ops "
-        "in causal order")
 
-    canon = final.merge(final)
-    check_self_merge(final, canon, "the final fleet's self-merge")
+    with K2Launches() as k2:
+        canon = final.merge(final)
+        k2.check("the final fleet's self-merge")
     del final
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    sync()
+    t0 = now()
     clock, dots, q, h = canon.to_coo()
-    t1 = time.perf_counter()
+    t1 = now()
     back = OrswotBatch.from_coo(N_TOTAL, uni, clock_coords=clock, dot_coords=dots,
                                 deferred_members=q, deferred_coords=h, device=dev)
-    torch.cuda.synchronize()
+    sync()
     same_planes(back, canon, "from_coo(to_coo(x)) against x")
-    log(f"  to_coo -> from_coo of the self-merged final fleet: bit-equal; to_coo "
-        f"{t1 - t0:.4f} s, from_coo {time.perf_counter() - t1:.4f} s ({len(dots[0])} dot cells) "
-        f"[{card}]")
+    rep.update(coo_s=[t1 - t0, now() - t1], dot_cells=len(dots[0]))
     del back, canon
-    op_bodies(fleet, causal, card)
-    return _build.launch_counts()["orswot_merge"]
+    return k2_count(), rep
 
 
 # -- phase 8 -------------------------------------------------------------------
 
 
-def flat_planes(b):
-    """The tensors of a flat batch, in field order."""
-    import dataclasses
-
-    return tuple(getattr(b, f.name) for f in dataclasses.fields(b))
-
-
 def flat_rows(b, rows):
-    return type(b)(*(x[rows] for x in flat_planes(b)))
+    """Rows ``rows`` of any batch (an index tensor or a slice)."""
+    return tree_map(lambda x: x[rows], b)
 
 
 def left_fold(reps):
@@ -1377,23 +1337,9 @@ def left_fold(reps):
     return acc
 
 
-def same_flat(got, want, what: str):
-    import torch
-
-    for g, w in zip(flat_planes(got), flat_planes(want)):
-        if not torch.equal(g.cpu(), w.cpu()):
-            raise AssertionError(f"{what}: planes differ")
-
-
 def flat_fleets(dev):
     """Seeded replica fleets, generated on the card (``bench.py``'s dense
     clocks: counters uniform in [0, 1000)), one type at a time."""
-    import torch
-
-    from crdt_tpu_torch import (
-        GCounterBatch, GSetBatch, LWWRegBatch, MVRegBatch, PNCounterBatch, VClockBatch,
-    )
-    from crdt_tpu_torch.dtypes import ZERO64
 
     gen = torch.Generator(device=dev)
 
@@ -1440,11 +1386,10 @@ def flat_fleets(dev):
 def flat_sample_check(reps, fold, uni, what: str, sample: int):
     """``sample`` objects of the device fold against the port's scalar
     engine folding the same states (``to_binary`` bytes equal)."""
-    from crdt_tpu_torch.utils.serde import to_binary
 
-    n = flat_planes(fold)[0].shape[0]
-    rows = rows_of(np.random.RandomState(SEED + 5).choice(n, min(n, sample), replace=False),
-                   flat_planes(fold)[0].device)
+    n = tree_leaves(fold)[0].shape[0]
+    rows = rows_of(seeded(5).choice(n, min(n, sample), replace=False),
+                   tree_leaves(fold)[0].device)
     acc = flat_rows(reps[0], rows).to_scalar(uni)
     for b in reps[1:]:
         for s, o in zip(acc, flat_rows(b, rows).to_scalar(uni)):
@@ -1458,21 +1403,17 @@ def flat_wire_round(cls, reps, extra, uni, leg: str, what: str):
     """``to_wire`` of every replica, then ``from_wire`` → fold → ``to_wire``:
     byte-equal to ``to_wire`` of the device fold; native fractions; a
     truncated blob raises.  Returns the round's numbers."""
-    import torch
 
-    from crdt_tpu_torch import WireFormatError
-    from crdt_tpu_torch.batch import wirebulk
-
-    dev = flat_planes(reps[0])[0].device
+    dev = tree_leaves(reps[0])[0].device
     before = wirebulk.wire_counts(leg)
-    t0 = time.perf_counter()
+    t0 = now()
     blobs = [b.to_wire(uni) for b in reps]
-    t1 = time.perf_counter()
+    t1 = now()
     parsed = [cls.from_wire(bl, uni, *extra, device=dev) for bl in blobs]
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    sync()
+    t2 = now()
     out = left_fold(parsed).to_wire(uni)
-    t3 = time.perf_counter()
+    t3 = now()
     if out != left_fold(reps).to_wire(uni):
         raise AssertionError(f"{what}: the wire round's blobs != to_wire of the device fold")
     grew = wirebulk.counts_since(before, leg)
@@ -1492,34 +1433,32 @@ def flat_wire_round(cls, reps, extra, uni, leg: str, what: str):
             "native_fraction": frac}
 
 
-def flat_fold(name, cls, reps, wire_r, extra, uni, card: str):
+def flat_fold(name, cls, reps, wire_r, extra, uni):
     """Fold the replicas through the batch ``merge`` (timed), check the
     fold on a sample against the scalar engine and in full against the
     same merges on the CPU, and run a wire round."""
-    import torch
-
-    n = flat_planes(reps[0])[0].shape[0]
-    t0 = time.perf_counter()
+    n = tree_leaves(reps[0])[0].shape[0]
+    t0 = now()
     fold = left_fold(reps)
     ms = cuda_ms(lambda: left_fold(reps), FLAT_ITERS)
-    t1 = time.perf_counter()
+    t1 = now()
     # one merge reads two states and writes one (plus its conflict or
     # overflow flags); MVReg's dominance tests compare [n, K, K, A]
     # counters twice (an int64 compare counted as 2 INT32 operations)
-    state = nbytes(flat_planes(reps[0]))
+    state = nbytes(tree_leaves(reps[0]))
     flags = n if cls.__name__ in ("LWWRegBatch", "MVRegBatch") else 0
     ops = 4 * n * FLAT_K * FLAT_K * FLAT_A if cls.__name__ == "MVRegBatch" else 0
     b_ms, b_by = bound_ms(2 * state, state + flags, ops)
     merge_ms = ms / (len(reps) - 1)
     mv = cls.__name__ == "MVRegBatch"
     k = min(n, FLAT_MVREG_CPU) if mv else n
-    sample = min(n, FLAT_MVREG_SAMPLE if mv else FLAT_SAMPLE)
-    cpu = left_fold([cls(*(x[:k].cpu() for x in flat_planes(b))) for b in reps])
-    same_flat(flat_rows(fold, slice(0, k)), cpu,
+    sample = min(n, FLAT_MVREG_SAMPLE if mv else FLAT_FOLD_SAMPLE)
+    cpu = left_fold([cls(*(x[:k].cpu() for x in tree_leaves(b))) for b in reps])
+    same_planes(flat_rows(fold, slice(0, k)), cpu,
               f"{name}: the device fold against the CPU plain path")
-    t2 = time.perf_counter()
+    t2 = now()
     flat_sample_check(reps, fold, uni, name, sample)
-    t3 = time.perf_counter()
+    t3 = now()
     leg = {"GCounterBatch": "gcounter", "VClockBatch": "vclock", "PNCounterBatch": "pncounter",
            "LWWRegBatch": "lww", "GSetBatch": "gset", "MVRegBatch": "mvreg"}[cls.__name__]
     wire = flat_wire_round(cls, [flat_rows(b, slice(0, FLAT_WIRE_N)) for b in reps[:wire_r]],
@@ -1529,11 +1468,9 @@ def flat_fold(name, cls, reps, wire_r, extra, uni, card: str):
            "bound_by": b_by, "share_of_bound": b_ms / merge_ms, "state_bytes": state,
            "cpu_checked": k, "sampled": sample, **wire,
            "phase_s": {"fold_timing": t1 - t0, "cpu_check": t2 - t1, "sample_check": t3 - t2,
-                       "wire_round_and_checks": time.perf_counter() - t3}}
-    log(f"  {name}: device == CPU plain path on {k}, {sample} sampled == scalar engine, wire "
-        f"round codec share 1.0 [{card}]")
+                       "wire_round_and_checks": now() - t3}}
     del cpu
-    torch.cuda.synchronize()
+    sync()
     return fold, row
 
 
@@ -1542,8 +1479,6 @@ def flat_op_traffic(fleet, kind: str, rng):
     uniform: ``inc`` dots (``dec`` too for PNCounter) carrying each
     actor's running total, or LWW ``set``s with unique markers above
     every register's."""
-    from crdt_tpu_torch.dtypes import counters_to_numpy
-    from crdt_tpu_torch.oplog import OP_DEC, OP_INC, OP_SET, OpBatch
 
     total = FLAT_FRAMES * FLAT_FRAME_OPS
     if kind == "lww":
@@ -1571,45 +1506,36 @@ def flat_op_traffic(fleet, kind: str, rng):
             for f in range(FLAT_FRAMES)]
 
 
-def flat_op_fold(kind, fleet, uni, card: str):
+def flat_op_fold(kind, fleet, uni):
     """The op frames through ``encode_ops_frame``/``decode_ops_frame`` into
     ``fleet``, frame 11 before frame 10, then every frame again: the
     re-delivery changes nothing, and a sample equals the scalar engine
     witnessing the same ops.  LWW also folds a frame of planted
     equal-marker conflicts."""
-    import torch
-
-    from crdt_tpu_torch import ConflictingMarker
-    from crdt_tpu_torch.oplog import (
-        OP_DEC, OpBatch, apply_gcounter_ops, apply_lww_ops, apply_pncounter_ops,
-        decode_ops_frame, encode_ops_frame,
-    )
-    from crdt_tpu_torch.scalar import Dir, Dot, PNOp
-    from crdt_tpu_torch.utils.serde import to_binary
 
     apply = {"gcounter": apply_gcounter_ops, "pncounter": apply_pncounter_ops,
              "lww": apply_lww_ops}[kind]
-    a = flat_planes(fleet)[0].shape[-1] if kind != "lww" else 1
-    rng = np.random.RandomState(SEED + 7)
-    t_traffic = time.perf_counter()
+    a = tree_leaves(fleet)[0].shape[-1] if kind != "lww" else 1
+    rng = seeded(7)
+    t_traffic = now()
     frames = [encode_ops_frame(ops) for ops in flat_op_traffic(fleet, kind, rng)]
-    t_traffic = time.perf_counter() - t_traffic
+    t_traffic = now() - t_traffic
     order = list(range(FLAT_FRAMES))
     order[OP_SWAP], order[OP_SWAP + 1] = order[OP_SWAP + 1], order[OP_SWAP]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    sync()
+    t0 = now()
     out = fleet
     for f in order:
         out = apply(out, decode_ops_frame(frames[f], num_actors=a))
-    torch.cuda.synchronize()
-    e2e = time.perf_counter() - t0
+    sync()
+    e2e = now() - t0
     again = out
     for f in order:
         again = apply(again, decode_ops_frame(frames[f], num_actors=a))
-    same_flat(again, out, f"{kind} ops: the second delivery")
-    n = flat_planes(fleet)[0].shape[0]
-    sample = np.random.RandomState(SEED + 8).choice(n, FLAT_SAMPLE, replace=False)
-    rows = rows_of(sample, flat_planes(fleet)[0].device)
+    same_planes(again, out, f"{kind} ops: the second delivery")
+    n = tree_leaves(fleet)[0].shape[0]
+    sample = seeded(8).choice(n, FLAT_SAMPLE, replace=False)
+    rows = rows_of(sample, tree_leaves(fleet)[0].device)
     states = flat_rows(fleet, rows).to_scalar(uni)
     where = {int(o): k for k, o in enumerate(sample)}
     for f in order:
@@ -1648,47 +1574,29 @@ def flat_op_fold(kind, fleet, uni, card: str):
         if set(np.nonzero(bitmap)[0].tolist()) != set(planted.tolist()):
             raise AssertionError("lww ops: the conflict bitmap != the planted set")
         row["planted_conflicts"] = 96
-    log(f"  {kind} ops: re-delivery unchanged; {FLAT_SAMPLE} sampled == scalar engine [{card}]")
     return row
 
 
-def flat_types(dev, card: str):
+def flat_types(dev):
     """Phase 8: the flat types at BASELINE.md's sizes (u64)."""
-    import torch
-
-    from crdt_tpu_torch import CrdtConfig, GCounterBatch, Universe
 
     cfgs = {a: Universe.identity(CrdtConfig(num_actors=a, mv_capacity=FLAT_K)) for a in
             (4, FLAT_PN_A, FLAT_A)}
-    report = {"card": card}
-    folds = {}
-    t0 = time.perf_counter()
+    report, folds = {}, {}
     for name, (cls, make, r, wire_r, extra, a) in flat_fleets(dev).items():
         reps = [make(i) for i in range(r)]
-        folds[name], report[name] = flat_fold(name, cls, reps, wire_r, extra, cfgs[a], card)
-        if name == "gcounter_2x4":
-            log(f"  gcounter_2x4 value {folds[name].value().tolist()} (the scalar engine's: "
-                f"{[s.value() for s in folds[name].to_scalar(cfgs[a])]})")
+        folds[name], report[name] = flat_fold(name, cls, reps, wire_r, extra, cfgs[a])
         del reps
         torch.cuda.empty_cache()
     gcount = GCounterBatch(folds["vclock_1m"].clocks)
     for kind, fleet, uni in (("gcounter", gcount, cfgs[FLAT_A]),
                              ("pncounter", folds["pncounter_1m"], cfgs[FLAT_PN_A]),
                              ("lww", folds["lwwreg_10m"], cfgs[FLAT_A])):
-        report[f"{kind}_ops"] = flat_op_fold(kind, fleet, uni, card)
-    report["phase_s"] = time.perf_counter() - t0
-    print("flat_types " + json.dumps(report), flush=True)
+        report[f"{kind}_ops"] = flat_op_fold(kind, fleet, uni)
+    return None, report
 
 
 # -- phase 9 -------------------------------------------------------------------
-
-
-def map_rows(b, rows):
-    """Rows ``rows`` of a MapBatch (an index tensor or a slice)."""
-    from crdt_tpu_torch.batch.map_batch import MapBatch
-    from crdt_tpu_torch.ops.map_ops import _tree_map
-
-    return MapBatch.from_state(_tree_map(lambda x: x[rows], b.state), b.kernel)
 
 
 def map_op_fleets(uni, vk, op: str, n: int, seed: int, dev):
@@ -1698,11 +1606,6 @@ def map_op_fleets(uni, vk, op: str, n: int, seed: int, dev):
     replica's own ``MAP_ROUNDS[1]`` up rounds and one remove round through
     actors of its own.  A remove round removes a key under the map clock
     in 15% of the objects and buffers one ahead of it in 10%."""
-    import torch
-
-    from crdt_tpu_torch.batch.map_batch import MapBatch
-    from crdt_tpu_torch.dtypes import zero_of
-    from crdt_tpu_torch.ops import clock_ops
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -1745,9 +1648,6 @@ def map_wire_fleets(uni, vk, n: int, seed: int, dev):
     """``MAP_R`` replica fleets of ``n`` nested maps: seeded scalar maps
     (``testdata.random_map``, a shared base and each replica's own ops
     through its own actors) through ``to_binary`` and ``from_wire``."""
-    from crdt_tpu_torch.batch.map_batch import MapBatch
-    from crdt_tpu_torch.utils.serde import to_binary
-    from crdt_tpu_torch.utils.testdata import random_map
 
     rng = np.random.RandomState(seed)
     kw = dict(n_keys=MAP_K, n_actors=MAP_ACTORS, rm_p=0.15)
@@ -1761,9 +1661,6 @@ def map_wire_fleets(uni, vk, n: int, seed: int, dev):
 def map_truncate_clock(b, seed: int):
     """One truncate clock per object: the map clock on ~20% of the actors
     of half the objects, zero elsewhere."""
-    import torch
-
-    from crdt_tpu_torch.dtypes import zero_of
 
     gen = torch.Generator(device=b.device)
     gen.manual_seed(seed)
@@ -1776,7 +1673,6 @@ def map_truncate_clock(b, seed: int):
 def map_join(reps, seed: int):
     """The Map phase's main path on one chunk: ``JoinExecutor`` folds the
     replicas (R - 1 merges and the plunger), then a truncate."""
-    from crdt_tpu_torch import JoinExecutor, JoinStats
 
     stats = JoinStats()
     joined = JoinExecutor().join_all(reps, stats=stats)
@@ -1786,49 +1682,39 @@ def map_join(reps, seed: int):
     return joined.truncate(tclock), tclock
 
 
-def map_checks(name, reps, tclock, out, uni, cpu_n: int, card: str):
+def map_checks(name, reps, tclock, out, uni, cpu_n: int):
     """Chunk 0 of a composition: its first ``cpu_n`` objects bit for bit
     against the same join and truncate on the CPU, ``MAP_SAMPLE`` sampled
     objects against the port's scalar engine, and a wire round (codec
     share 1.0, the blobs ``to_binary`` of the scalar result)."""
-    import torch
 
-    from crdt_tpu_torch import JoinExecutor
-    from crdt_tpu_torch.batch import wirebulk
-    from crdt_tpu_torch.batch.map_batch import MapBatch, _leaves
-    from crdt_tpu_torch.batch.vclock_batch import row_to_vclock
-    from crdt_tpu_torch.dtypes import counters_to_numpy
-    from crdt_tpu_torch.ops.map_ops import _tree_map
-    from crdt_tpu_torch.utils.serde import to_binary
-
-    t0 = time.perf_counter()
-    cpu = [MapBatch.from_state(_tree_map(lambda x: x[:cpu_n].cpu(), r.state), r.kernel)
-           for r in reps]
+    t0 = now()
+    cpu = [tree_map(lambda x: x[:cpu_n].cpu(), r) for r in reps]
     want = JoinExecutor().join_all(cpu).truncate(tclock[:cpu_n].cpu())
-    for g, w in zip(_leaves(map_rows(out, slice(0, cpu_n)).state), _leaves(want.state)):
+    for g, w in zip(tree_leaves(flat_rows(out, slice(0, cpu_n))), tree_leaves(want)):
         if not torch.equal(g.cpu(), w):
             raise AssertionError(f"{name}: the card's join != the CPU plain path's")
-    t1 = time.perf_counter()
+    t1 = now()
     n = out.clock.shape[0]
-    rows = rows_of(np.sort(np.random.RandomState(SEED + 9).choice(n, MAP_SAMPLE, replace=False)),
+    rows = rows_of(np.sort(seeded(9).choice(n, MAP_SAMPLE, replace=False)),
                    out.device)
-    acc = map_rows(reps[0], rows).to_scalar(uni)
+    acc = flat_rows(reps[0], rows).to_scalar(uni)
     for r in reps[1:]:
-        for s, o in zip(acc, map_rows(r, rows).to_scalar(uni)):
+        for s, o in zip(acc, flat_rows(r, rows).to_scalar(uni)):
             s.merge(o)
     for s, t in zip(acc, counters_to_numpy(tclock[rows])):
         s.merge(s.clone())
         s.truncate(row_to_vclock(t, uni))
     want_blobs = [to_binary(s) for s in acc]
-    if [to_binary(s) for s in map_rows(out, rows).to_scalar(uni)] != want_blobs:
+    if [to_binary(s) for s in flat_rows(out, rows).to_scalar(uni)] != want_blobs:
         raise AssertionError(f"{name}: the card's join != the scalar engine's on the sample")
-    t2 = time.perf_counter()
+    t2 = now()
     before = wirebulk.wire_counts("map")
     blobs = out.to_wire(uni)
-    t3 = time.perf_counter()
+    t3 = now()
     back = MapBatch.from_wire(blobs, uni, out.kernel.val_kernel, device=out.device)
-    torch.cuda.synchronize()
-    t4 = time.perf_counter()
+    sync()
+    t4 = now()
     if [blobs[i] for i in rows.tolist()] != want_blobs or back.to_wire(uni) != blobs:
         raise AssertionError(f"{name}: the wire round's blobs differ")
     # the round gives key slots, values and deferred rows in wire order: the
@@ -1840,42 +1726,24 @@ def map_checks(name, reps, tclock, out, uni, cpu_n: int, card: str):
     frac = {d: wirebulk.native_fraction(grew, d) for d in ("from_wire", "to_wire")}
     if frac != {"from_wire": 1.0, "to_wire": 1.0}:
         raise AssertionError(f"{name}: not every blob took the host codec ({grew})")
-    log(f"  {name}: first {cpu_n} objects == CPU plain path, {MAP_SAMPLE} sampled == scalar "
-        f"engine, wire round codec share 1.0 [{card}]")
     return {"cpu_check_s": t1 - t0, "sample_check_s": t2 - t1, "encode_s": t3 - t2,
             "parse_s": t4 - t3, "wire_bytes_per_object": sum(map(len, blobs)) / n}
 
 
-def map_k2(reps, card: str):
+def map_k2(reps):
     """The merge kernel at the nested shapes a Map<K, Orswot> merge hands
     it: every launch of ``reps[0].merge(reps[1])`` (the value merge, the
     body's truncate and the deferred settle's, each an ``[N, 2K]`` batch
     of sets) bit for bit against ``merge_reference`` on the card, with its
     plan and its time beside the bytes bound."""
-    import torch
-
-    from crdt_tpu_torch.ops import orswot_tile as tile
-
-    seen = []
-    launch = tile.merge
-
-    def capture(*args, **kw):
-        seen.append(args)
-        return launch(*args, **kw)
-
-    # the merge body reaches the kernel through this module attribute; the
-    # capture records each launch's inputs as the main path built them
-    tile.merge = capture
-    try:
+    with K2Launches() as k2:  # each launch's inputs as the main path built them
         reps[0].merge(reps[1])
-    finally:
-        tile.merge = launch
     what = ("value merge", "truncate", "deferred settle")
-    if len(seen) != len(what):
-        raise AssertionError(f"a Map<K, Orswot> merge launched the merge kernel {len(seen)} "
+    if len(k2.seen) != len(what):
+        raise AssertionError(f"a Map<K, Orswot> merge launched the merge kernel {len(k2.seen)} "
                              f"times, not {len(what)}")
     rows = []
-    for name, args in zip(what, seen):
+    for name, (args, _) in zip(what, k2.seen):
         sa, sb, (m_cap, d_cap) = args[:5], args[5:10], args[10:12]
         got = tile.merge(*sa, *sb, m_cap, d_cap, prebiased=True)
         shape = list(sa[0].shape[:-1])
@@ -1896,8 +1764,6 @@ def map_k2(reps, card: str):
         plain_ms = cuda_ms(plain, 1)
         in_b, out_b = nbytes(sa) + nbytes(sb), nbytes(got[:5]) + got[5].numel() * 4
         b_ms, by = bound_ms(in_b, out_b, n * (2 * m_cap) * sa[0].shape[-1] * 12)
-        log(f"  orswot_merge at the Map's {name}, nested shape {shape}: bit-equal to "
-            f"merge_reference [{card}]")
         rows.append({"launch": name, "shape": shape, "plan": plan, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
                      "bytes": in_b + out_b})
@@ -1905,46 +1771,10 @@ def map_k2(reps, card: str):
     return rows
 
 
-def map_profile(reps, merge_ms: float, card: str):
-    """One pairwise Map merge under ``torch.profiler``: the device's busy
-    time (every kernel's), its idle share against ``merge_ms`` (the same
-    merge timed by CUDA events), the kernels launched, and the top torch
-    ops and kernels by device time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    reps[0].merge(reps[1])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        reps[0].merge(reps[1])
-        torch.cuda.synchronize()
-    ev = prof.key_averages()
-    kernels = [e for e in ev if e.device_type == DeviceType.CUDA]
-    ops = [e for e in ev if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
-
-    def top(es):
-        es = sorted(es, key=lambda e: -e.self_device_time_total)[:10]
-        return [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in es]
-
-    out = {"busy_ms": busy or None, "idle_share": 1 - busy / merge_ms if busy else None,
-           "kernel_launches": sum(e.count for e in kernels), "top_ops": top(ops),
-           "top_kernels": top(kernels)}
-    log(f"  map_orswot merge profiled [{card}]")
-    return out
-
-
-def map_phase(dev, card: str):
+def map_phase(dev):
     """Phase 9: Map<K, Orswot>, Map<K, MVReg> and Map<K, Map<K2, MVReg>> at
     the config-default widths (u32).  Returns the merge kernel's launches
     on the phase's main path."""
-    import torch
-
-    from crdt_tpu_torch import (
-        CrdtConfig, MapKernel, MVRegKernel, OrswotKernel, Universe, _build,
-    )
-    from crdt_tpu_torch.batch.map_batch import _leaves
 
     uni = Universe.identity(CrdtConfig.gpu_default(
         num_actors=MAP_A, key_capacity=MAP_K, member_capacity=MAP_M, deferred_capacity=MAP_D,
@@ -1959,20 +1789,18 @@ def map_phase(dev, card: str):
                           MAP_NESTED_N, MAP_NESTED_CHUNK, 16,
                           lambda vk, n, s: map_wire_fleets(uni, vk, n, s, dev)),
     }
-    report, kept = {"card": card}, {}
-    _build.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
+    report, kept = {}, {}
     for k, (name, (vk, n_total, chunk, _, build)) in enumerate(comps.items()):
         build_s, join_ms = 0.0, []
         for c in range(n_total // chunk):
-            t0 = time.perf_counter()
+            t0 = now()
             reps = build(vk, chunk, SEED + 900 + 10 * k + c)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
+            sync()
+            t1 = now()
             out, tclock = map_join(reps, SEED + 950 + 10 * k + c)
-            torch.cuda.synchronize()
+            sync()
             build_s += t1 - t0
-            join_ms.append((time.perf_counter() - t1) * 1e3)
+            join_ms.append((now() - t1) * 1e3)
             if c == 0:
                 kept[name] = (reps, tclock, out)
             del reps, out
@@ -1981,30 +1809,23 @@ def map_phase(dev, card: str):
         report[name] = {"objects": n_total, "chunk": chunk, "replicas": MAP_R,
                         "join_ms_per_chunk": join_ms, "build_s": build_s,
                         "live_key_share": live, "deferred_object_share": deferred}
-        log(f"  {name}: {n_total} objects in chunks of {chunk}, R={MAP_R}: join + truncate ms "
-            f"per chunk {[round(t, 2) for t in join_ms]} (R - 1 merges and the plunger); "
-            f"fleets built in {build_s:.1f} s; {live:.2%} of the key slots live, deferred rows "
-            f"in {deferred:.2%} of objects [{card}]")
-    launches = _build.launch_counts()["orswot_merge"]
+    launches = k2_count()
     report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    log(f"  launches {_build.launch_counts()}; peak device memory "
-        f"{report['peak_memory_gb']:.2f} GB [{card}]")
     if launches == 0:
         raise AssertionError("the Map phase never launched the merge kernel")
     for name, (reps, tclock, out) in kept.items():
-        report[name].update(map_checks(name, reps, tclock, out, uni, comps[name][3], card))
+        report[name].update(map_checks(name, reps, tclock, out, uni, comps[name][3]))
         # a merge reads two states and writes one (and one overflow flag per object)
-        state = nbytes(_leaves(reps[0].state))
-        ms = report[name]["merge_ms"] = cuda_ms(lambda: reps[0].merge(reps[1]), 3)
+        state = nbytes(tree_leaves(reps[0]))
+        report[name]["merge_ms"] = cuda_ms(lambda: reps[0].merge(reps[1]), 3)
         b_ms, by = bound_ms(2 * state, state + reps[0].clock.shape[0], 0)
         report[name].update(state_bytes=state, bound_ms_per_merge=b_ms, bound_by=by)
-        log(f"  {name}: one pairwise merge of {reps[0].clock.shape[0]} objects {ms:.3f} ms "
-            f"(CUDA events), bound {b_ms:.4f} ms by {by} ({state} B per state) [{card}]")
-    report["map_orswot"]["profile"] = map_profile(
-        kept["map_orswot"][0], report["map_orswot"]["merge_ms"], card)
-    report["orswot_merge"] = map_k2(kept["map_orswot"][0], card)
-    print("maps " + json.dumps(report), flush=True)
-    return launches
+    # one pairwise Map<K, Orswot> merge profiled (warm: cuda_ms ran it)
+    reps = kept["map_orswot"][0]
+    report["map_orswot"]["profile"] = profiled(lambda: reps[0].merge(reps[1]),
+                                               report["map_orswot"]["merge_ms"])
+    report["orswot_merge"] = map_k2(kept["map_orswot"][0])
+    return launches, report
 
 
 # -- phase 10 ------------------------------------------------------------------
@@ -2025,9 +1846,7 @@ class K2Launches:
     and forgets it."""
 
     def __enter__(self):
-        from crdt_tpu_torch.ops import orswot_tile
-
-        self.tile, self.launch, self.seen, self.checked = orswot_tile, orswot_tile.merge, [], []
+        self.launch, self.seen, self.checked = tile.merge, [], []
 
         def capture(*args, **kw):
             out = self.launch(*args, **kw)
@@ -2035,11 +1854,11 @@ class K2Launches:
             return out
 
         # orswot_ops.merge reaches the kernel through this module attribute
-        orswot_tile.merge = capture
+        tile.merge = capture
         return self
 
     def __exit__(self, *exc):
-        self.tile.merge = self.launch
+        tile.merge = self.launch
 
     def check(self, what: str):
         for args, out in self.seen:
@@ -2047,7 +1866,7 @@ class K2Launches:
             n, a = sa[0].shape[0], sa[0].shape[-1]
             step = max(1, K2_CHECK_CELLS // (m_cap * (sa[1].shape[-1] + sb[1].shape[-1]) * a))
             for s in range(0, n, step):
-                want = self.tile.merge_reference(*(x[s:s + step] for x in (*sa, *sb)), m_cap,
+                want = tile.merge_reference(*(x[s:s + step] for x in (*sa, *sb)), m_cap,
                                                  d_cap)
                 if max_abs_err([x[s:s + step] for x in out], want):
                     raise AssertionError(f"{what}: the merge kernel != merge_reference at "
@@ -2057,31 +1876,37 @@ class K2Launches:
         self.seen.clear()
 
 
+def session_row(r, **extra) -> dict:
+    """A session report's wall, profile split and bytes sent by frame
+    kind, with ``extra`` fields."""
+    return {"wall_s": r.profile.wall_ns / 1e9, "diverged": r.diverged,
+            "split_s": {c: getattr(r.profile, f"{c}_ns") / 1e9
+                        for c in ("serialize", "network", "kernel", "other", "unaccounted")},
+            "bytes": {k: getattr(r, f"{k}_bytes_sent")
+                      for k in ("hello", "digest", "delta", "full", "tree")}, **extra}
+
+
 def timed_ms(fn):
     """``(fn(), device ms by CUDA events, wall ms)``."""
-    import torch
-
-    torch.cuda.synchronize()
+    sync()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
+    t0 = now()
     start.record()
     out = fn()
     end.record()
-    torch.cuda.synchronize()
-    return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+    sync()
+    return out, start.elapsed_time(end), (now() - t0) * 1e3
 
 
-def diverge(base, rng, actor: int, member: int, dev):
+def diverge(base, rng, actor: int, member: int, dev, lo: int = 0, hi=None):
     """``base`` (unchanged) with one add of ``actor`` (member ``member``,
-    the next dot) on its own seeded ``SYNC_DIV`` share of the rows, and
-    those rows: the divergence phases 10 and 12 plant."""
-    import torch
+    the next dot) on its own seeded ``SYNC_DIV`` share of the rows
+    ``[lo, hi)`` (default all), and those rows: the divergence phases 10,
+    12 and 16 plant."""
 
-    from crdt_tpu_torch.sync import delta
-
-    n = base.clock.shape[0]
-    k = int(n * SYNC_DIV)
-    rows = np.sort(rng.choice(n, k, replace=False))
+    hi = base.clock.shape[0] if hi is None else hi
+    k = int((hi - lo) * SYNC_DIV)
+    rows = lo + np.sort(rng.choice(hi - lo, k, replace=False))
     idx = rows_of(rows, dev)
     sub = delta.take_rows(base, idx)
     full = torch.full((k,), actor, device=dev)
@@ -2094,24 +1919,20 @@ def sync_replicas(dev, rng):
     """Replica P (62,500-object chunks of ``anti_entropy_fleets``, one
     plunger self-merge) and replica Q = P; then each takes one add on its
     own seeded 1% of the rows.  Returns ``(P, Q, rows_p, rows_q, seconds)``."""
-    import torch
 
-    from crdt_tpu_torch import OrswotBatch
-    from crdt_tpu_torch.utils.testdata import anti_entropy_fleets
-
-    t0 = time.perf_counter()
+    t0 = now()
     parts = []
     for _ in range(N_TOTAL // CHUNK):
         (planes,) = anti_entropy_fleets(rng, CHUNK, A, M, D, 1, base=SYNC_BASE, novel=0,
                                         deferred_frac=DEFERRED_FRAC)
         parts.append(OrswotBatch.from_numpy(*planes, device=dev))
-    built = OrswotBatch(*(torch.cat([getattr(b, k) for b in parts]) for k in PLANES))
+    built = tree_map(lambda *xs: torch.cat(xs), *parts)
     del parts
     base = built.merge(built)
     (p, rows_p), (q, rows_q) = (diverge(base, rng, 1, 1 << 20, dev),
                                 diverge(base, rng, 0, 1 << 21, dev))
-    torch.cuda.synchronize()
-    return p, q, rows_p, rows_q, time.perf_counter() - t0
+    sync()
+    return p, q, rows_p, rows_q, now() - t0
 
 
 def full_state_bytes(p, uni, estimate: bool = False) -> tuple[int, float]:
@@ -2120,63 +1941,47 @@ def full_state_bytes(p, uni, estimate: bool = False) -> tuple[int, float]:
     chunk's bytes times the chunks (the chip budget's cut 4 for phase 10,
     whose replicas are uniform: the whole fleet's encode takes 3.6-4.6 s;
     phase 11's skewed writes make phase 12's first chunk no sample)."""
-    from crdt_tpu_torch import OrswotBatch
 
-    t0 = time.perf_counter()
+    t0 = now()
     stop = CHUNK if estimate else N_TOTAL
-    full = sum(sum(map(len, OrswotBatch(*(getattr(p, k)[s:s + CHUNK] for k in PLANES))
+    full = sum(sum(map(len, flat_rows(p, slice(s, s + CHUNK))
                        .to_wire(uni))) for s in range(0, stop, CHUNK))
-    return full * (N_TOTAL // stop), time.perf_counter() - t0
+    return full * (N_TOTAL // stop), now() - t0
 
 
-def session_step(p, q, uni, full_bytes: int, card: str) -> tuple:
+def session_step(p, q, uni, full_bytes: int) -> tuple:
     """Step 3 of phase 10: ``sync_pair`` of two sessions, as
     ``bench.py::bench_sync`` drives them, timed by the kernel observatory.
     Returns both sessions, both reports and the step's numbers."""
-    import torch
-
-    from crdt_tpu_torch import SyncSession, _build, kernel_observatory, sync_pair
 
     obs = kernel_observatory()
     obs.reset()
-    torch.cuda.synchronize()
+    sync()
     earlier_peak = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     sa = SyncSession(p, uni, full_state_bytes=full_bytes, peer="q")
     sb = SyncSession(q, uni, full_state_bytes=full_bytes, peer="p")
     obs.set_enabled(True)
     try:
-        t0 = time.perf_counter()
+        t0 = now()
         ra, rb = sync_pair(sa, sb)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        sync()
+        wall = now() - t0
     finally:
         obs.set_enabled(False)
     k2 = obs.table()["orswot_merge"]
-    out = {"wall_s": wall, "k2_launches": _build.launch_counts()["orswot_merge"],
+    out = {"wall_s": wall, "k2_launches": k2_count(),
            "k2_device_ms": k2["device_ms_total"], "k2_timed": k2["timed"],
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "earlier_peak_gb": earlier_peak}
     for side, r in (("p", ra), ("q", rb)):
-        prof = r.profile
-        out[side] = {
-            "wall_s": prof.wall_ns / 1e9,
-            "split_s": {c: getattr(prof, f"{c}_ns") / 1e9
-                        for c in ("serialize", "network", "kernel", "other", "unaccounted")},
-            "bytes": {k: getattr(r, f"{k}_bytes_sent") for k in ("hello", "digest", "delta",
-                                                                  "full", "tree")},
-            "bytes_received": r.bytes_received, "delta_ratio": r.delta_ratio(full_bytes),
-            "diverged": r.diverged, "digest_rounds": r.digest_rounds,
-            "frames": [prof.frames_sent, prof.frames_received]}
-        log(f"  session {side}: {out[side]['wall_s']:.3f} s wall "
-            f"({ {c: round(v, 4) for c, v in out[side]['split_s'].items()} }); bytes sent "
-            f"{out[side]['bytes']}, received {r.bytes_received}; delta_ratio "
-            f"{out[side]['delta_ratio']:.5f} [{card}]")
-    log(f"  sync_pair {wall:.3f} s [{card}]")
+        out[side] = session_row(r, bytes_received=r.bytes_received, digest_rounds=r.digest_rounds,
+                                delta_ratio=r.delta_ratio(full_bytes),
+                                frames=[r.profile.frames_sent, r.profile.frames_received])
     return sa, sb, ra, rb, out
 
 
-def session_checks(p, q, sa, sb, reports, ids, uni, rng, k2, card: str,
+def session_checks(p, q, sa, sb, reports, ids, uni, rng, k2,
                    self_merge: bool = False) -> None:
     """The session step's checks: both converged on the planted rows
     without a fallback, within the done-bar; each replica equals the merge
@@ -2186,10 +1991,6 @@ def session_checks(p, q, sa, sb, reports, ids, uni, rng, k2, card: str,
     session does not ship keeps), each replica's rows outside ``ids`` are
     first held bit for bit against the replica before the session, and the
     replica is self-merged before it is held against the full-fleet merge."""
-    import torch
-
-    from crdt_tpu_torch.sync import delta
-    from crdt_tpu_torch.utils.serde import from_binary, to_binary
 
     for r, what in zip(reports, ("P", "Q")):
         if not (r.converged and r.diverged == ids.size and not r.full_state_fallback
@@ -2205,12 +2006,10 @@ def session_checks(p, q, sa, sb, reports, ids, uni, rng, k2, card: str,
     for got, (x, y), what in ((sa.batch, (p, q), "P"), (sb.batch, (q, p), "Q")):
         if self_merge:
             for lo in range(0, kept.shape[0], CHUNK):
-                rows = kept[lo:lo + CHUNK]
-                for name in PLANES:
-                    if not torch.equal(getattr(got, name)[lo:lo + CHUNK][rows],
-                                       getattr(x, name)[lo:lo + CHUNK][rows]):
-                        raise AssertionError(f"{what} after the session: {name} differs from "
-                                             f"{what} before it on a row it did not ship")
+                sl, rows = slice(lo, lo + CHUNK), kept[lo:lo + CHUNK]
+                same_planes(flat_rows(flat_rows(got, sl), rows), flat_rows(flat_rows(x, sl), rows),
+                            f"{what} after the session against {what} before it, on a row it "
+                            "did not ship")
             got = got.merge(got)
             k2.check("the self-merge")
         same_planes(got, x.merge(y), f"{what} after the session against K2's full-fleet merge")
@@ -2224,24 +2023,18 @@ def session_checks(p, q, sa, sb, reports, ids, uni, rng, k2, card: str,
             s.merge(from_binary(blobs[theirs][i]))
             if to_binary(s) != blobs[new][i]:
                 raise AssertionError(f"{new} != the scalar engine at object {sample[i]}")
-    log(f"  after the session: P == merge(P, Q) and Q == merge(Q, P) (K2, full fleet"
-        f"{', after a self-merge; the rows not shipped unchanged' if self_merge else ''}), "
-        f"{SYNC_SAMPLE} sampled rows == the scalar engine [{card}]")
 
 
-def idle_resync(a, b, uni, full_bytes: int, card: str) -> dict:
+def idle_resync(a, b, uni, full_bytes: int) -> dict:
     """An idle re-sync of the converged replicas with the digest tree on
     both sides: one root frame each way, no delta and no full state."""
-    import torch
-
-    from crdt_tpu_torch import SyncSession, sync_pair
 
     sa = SyncSession(a, uni, full_state_bytes=full_bytes, peer="q", digest_tree=True)
     sb = SyncSession(b, uni, full_state_bytes=full_bytes, peer="p", digest_tree=True)
-    t0 = time.perf_counter()
+    t0 = now()
     reports = sync_pair(sa, sb)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    sync()
+    wall = now() - t0
     for r in reports:
         if not (r.converged and r.tree_mode and r.tree_frames_sent == 1 and r.diverged == 0
                 and r.delta_bytes_sent == r.full_bytes_sent == r.digest_bytes_sent == 0):
@@ -2249,43 +2042,29 @@ def idle_resync(a, b, uni, full_bytes: int, card: str) -> dict:
     out = {"wall_s": wall, "tree_bytes": [r.tree_bytes_sent for r in reports],
            "profile_wall_s": [r.profile.wall_ns / 1e9 for r in reports],
            "kernel_s": [r.profile.kernel_ns / 1e9 for r in reports]}
-    log(f"  idle re-sync (digest tree): one root frame each way, {out['tree_bytes']} B, "
-        f"{wall:.3f} s (kernel {out['kernel_s']}) [{card}]")
     return out
 
 
-def sync_gc_phase(dev, card: str):
+def sync_gc_phase(dev):
     """Phase 10: two 1.25M-object replicas reconciled by two sync sessions,
     and a causal-GC pass (A=64, M=16, D=2, u32).  Returns the merge
     kernel's launches on the phase's main path (the plunger, the sessions'
     applies, the reference truncate), replica P and the diverged rows,
     which phase 11 reads."""
-    import torch
-
-    from crdt_tpu_torch import GcEngine, GcPolicy, OrswotBatch, OrswotKernel, _build
-    from crdt_tpu_torch.dtypes import as_counters
-    from crdt_tpu_torch.gc import compact
-    from crdt_tpu_torch.obs import convergence
-    from crdt_tpu_torch.oplog import OP_ADD, OpApplier, OpBatch, OpLog, decode_ops_frame
-    from crdt_tpu_torch.oplog import encode_ops_frame
-    from crdt_tpu_torch.sync import delta, digest, tree
-    from crdt_tpu_torch.utils.testdata import plant_dominated_deferred
 
     uni = star_universe()
-    rng = np.random.RandomState(SEED + 10)
-    rep = {"card": card, "objects": N_TOTAL, "shape": [A, M, D], "divergence": SYNC_DIV}
-    torch.cuda.reset_peak_memory_stats()
+    rng = seeded(10)
+    rep = {"objects": N_TOTAL, "shape": [A, M, D], "divergence": SYNC_DIV}
     launches = 0
     with K2Launches() as k2:
         # 1. two replicas
         _build.reset_launch_counts()
         p, q, rows_p, rows_q, rep["build_s"] = sync_replicas(dev, rng)
-        launches += _build.launch_counts()["orswot_merge"]
+        launches += k2_count()
         k2.check("the plunger")
         torch.cuda.empty_cache()
         planted = np.union1d(rows_p, rows_q)
-        fleet_bytes = nbytes([getattr(p, k) for k in PLANES])
-        log(f"  replicas: {N_TOTAL} objects each, built [{card}]")
+        fleet_bytes = nbytes(tree_leaves(p))
 
         # 2. find the diverged rows: digests, trees, descent
         _build.reset_launch_counts()
@@ -2293,9 +2072,9 @@ def sync_gc_phase(dev, card: str):
         d_q, ms_q, wall_q = timed_ms(lambda: digest.digest_of(q, uni))
         (t_p, t_q), tree_ms, _ = timed_ms(lambda: (tree.build_tree(d_p, device=dev),
                                                    tree.build_tree(d_q, device=dev)))
-        t0 = time.perf_counter()
+        t0 = now()
         found, stats = tree.simulate_descent(t_p, t_q)
-        descent_ms = (time.perf_counter() - t0) * 1e3
+        descent_ms = (now() - t0) * 1e3
         ids = delta.diverged_indices(d_p, d_q)
         if not (np.array_equal(found, ids) and np.array_equal(ids, planted)):
             raise AssertionError(f"descent {found.size}, diverged {ids.size} and planted "
@@ -2304,20 +2083,19 @@ def sync_gc_phase(dev, card: str):
         rep.update(digest_ms=[ms_p, ms_q], digest_wall_ms=[wall_p, wall_q],
                    digest_bound_ms=b_ms, tree_build_ms_both=tree_ms, descent_ms=descent_ms,
                    descent=dataclasses.asdict(stats), diverged=int(ids.size))
-        log(f"  descent: {ids.size} rows == diverged_indices == the planted rows [{card}]")
 
         # 3. the exchange: two sessions through sync_pair, then an idle re-sync
         rep["full_state_bytes"], rep["full_state_encode_s"] = full_state_bytes(p, uni,
                                                                                  estimate=True)
         _build.reset_launch_counts()
-        sa, sb, ra, rb, rep["session"] = session_step(p, q, uni, rep["full_state_bytes"], card)
-        launches += _build.launch_counts()["orswot_merge"]
+        sa, sb, ra, rb, rep["session"] = session_step(p, q, uni, rep["full_state_bytes"])
+        launches += k2_count()
         rep["delta_ratio"] = max(ra.delta_ratio(rep["full_state_bytes"]),
                                  rb.delta_ratio(rep["full_state_bytes"]))
-        session_checks(p, q, sa, sb, (ra, rb), ids, uni, rng, k2, card)
+        session_checks(p, q, sa, sb, (ra, rb), ids, uni, rng, k2)
         rep["session"]["idle_resync"] = idle_resync(sa.batch, sb.batch, uni,
-                                                    rep["full_state_bytes"], card)
-        chunk = OrswotBatch(*(getattr(sa.batch, k)[:CHUNK].clone() for k in PLANES))
+                                                    rep["full_state_bytes"])
+        chunk = tree_map(lambda x: x[:CHUNK].clone(), sa.batch)
         del sa, sb
         torch.cuda.empty_cache()
 
@@ -2342,19 +2120,18 @@ def sync_gc_phase(dev, card: str):
                           counter=rng.randint(1, 200, GC_FRAME_OPS),
                           member=rng.randint(0, 1 << 24, GC_FRAME_OPS))
             oplog.append(decode_ops_frame(encode_ops_frame(ops), num_actors=A))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        sync()
+        t0 = now()
         gcd, report = GcEngine(GcPolicy(interval_rounds=1), tracker=trk).collect(
             big, universe=uni, oplog=oplog, applier=OpApplier(uni), peers=["p", "q"])
-        torch.cuda.synchronize()
-        gc_s = time.perf_counter() - t0
+        sync()
+        gc_s = now() - t0
         # 6. the reference truncate at the watermark, one chunk
         wm = report.watermark.clock
         trunc, trunc_ms, _ = timed_ms(lambda: compact.truncate_orswot(chunk, wm))
-        launches += _build.launch_counts()["orswot_merge"]
+        launches += k2_count()
 
-        plane_diff = nbytes([getattr(big, k) for k in PLANES]) - nbytes(
-            [getattr(gcd, k) for k in PLANES])
+        plane_diff = nbytes(tree_leaves(big)) - nbytes(tree_leaves(gcd))
         if (report.member_capacity, report.deferred_capacity) != ((GC_M, M), (GC_D, D)):
             raise AssertionError(f"GC shrank to {report.member_capacity}, "
                                  f"{report.deferred_capacity}")
@@ -2364,19 +2141,9 @@ def sync_gc_phase(dev, card: str):
         if report.reclaimed_bytes - report.oplog_bytes_reclaimed != plane_diff:
             raise AssertionError(f"reclaimed {report.reclaimed_bytes} B != the planes' "
                                  f"{plane_diff} B + the op log's")
-        rep["gc"] = {"seconds": report.seconds, "wall_s": gc_s,
+        rep["gc"] = {**dataclasses.asdict(report), "wall_s": gc_s, "truncate_ms": trunc_ms,
                      "tombstone_rows_planted": tombs, "duplicates_planted": k // 10,
-                     "tombstones_cleared": report.tombstones_cleared,
-                     "members_freed": report.members_freed,
-                     "member_capacity": report.member_capacity,
-                     "deferred_capacity": report.deferred_capacity,
-                     "reclaimed_bytes": report.reclaimed_bytes,
-                     "plane_bytes_reclaimed": plane_diff,
-                     "oplog_ops": GC_FRAMES * GC_FRAME_OPS,
-                     "oplog_ops_dropped": report.oplog_ops_dropped,
-                     "watermark_max_counter": report.watermark.max_counter,
-                     "watermark_peers": report.watermark.peers, "truncate_ms": trunc_ms}
-        log(f"  GC pass over Q regrown to M={GC_M}, D={GC_D}: {gc_s:.3f} s [{card}]")
+                     "plane_bytes_reclaimed": plane_diff, "oplog_ops": GC_FRAMES * GC_FRAME_OPS}
 
         # 5. the GC property at full width
         want = digest.digest_of(big.merge(p), uni)
@@ -2388,17 +2155,14 @@ def sync_gc_phase(dev, card: str):
         # 6. the truncate against the plain path (the rank merge, on the card)
         kern = OrswotKernel(M, D, A, 32, merge_impl="rank")
         clock = as_counters(np.broadcast_to(wm, (CHUNK, A)), torch.int32, dev)
-        plain, over = kern.truncate_full(tuple(getattr(chunk, k) for k in PLANES), clock)
-        if bool(over.any()) or max_abs_err([getattr(trunc, k) for k in PLANES], plain):
+        plain, over = kern.truncate_full(tuple(tree_leaves(chunk)), clock)
+        if bool(over.any()) or max_abs_err(tree_leaves(trunc), plain):
             raise AssertionError("truncate_orswot through the merge kernel != the plain path")
         k2.check("the truncate")
         rep["k2_launches_checked"] = k2.checked
     rep["peak_memory_gb"] = max(torch.cuda.max_memory_allocated() / 1e9,
                                 rep["session"]["peak_memory_gb"], rep["session"]["earlier_peak_gb"])
-    log(f"  merge(GC'd Q, P) == merge(Q, P) by digest; truncate at the watermark == the plain "
-        f"path; {len(k2.checked)} merge-kernel launches bit-equal to merge_reference [{card}]")
-    print("sync_gc " + json.dumps(rep), flush=True)
-    return launches, p, ids
+    return launches, rep, p, ids
 
 
 # -- phase 11 ------------------------------------------------------------------
@@ -2416,8 +2180,6 @@ READ_PARITY, READ_AUDIT, READ_KIND_N, READ_TIMED = 4096, 4096, 65_536, 10
 
 def read_traffic(rng):
     """``(read objects, read members, write objects)`` of the mixed stream."""
-    from crdt_tpu_torch.serve import NO_MEMBER
-    from crdt_tpu_torch.utils.workload import WorkloadGen
 
     gen = WorkloadGen(N_TOTAL, seed=29, zipf_s=1.1, burst_len=4, read_frac=0.5)
     keys, is_read = gen.draw_mixed(2 * READ_B * READ_NB + 20_000)
@@ -2442,12 +2204,10 @@ def same_frame(got, want, what: str):
 
 def cpu_frame(fleet, obj, member):
     """The same reads through the plain path on a CPU copy of their rows."""
-    from crdt_tpu_torch.serve import gather
-    from crdt_tpu_torch.sync import delta
 
     uniq, inv = np.unique(obj, return_inverse=True)
     rows = delta.take_rows(fleet, rows_of(uniq, fleet.clock.device))
-    return gather(dataclasses.replace(rows, **{k: getattr(rows, k).cpu() for k in PLANES}),
+    return gather(tree_map(torch.Tensor.cpu, rows),
                   inv, member=member)
 
 
@@ -2461,25 +2221,20 @@ def refresh_frontier(trk, conv, fleet, prev, span):
     fleet with subtree 0's clocks as of ``prev``, the last refresh), then
     the frontier on the card; held against a numpy min over the peers.
     Returns ``(report, fold ms, this refresh's host svv)``."""
-    import torch
-
-    from crdt_tpu_torch import VClockBatch
-    from crdt_tpu_torch.dtypes import counters_to_numpy
-    from crdt_tpu_torch.sync import digest
 
     lag = VClockBatch(clocks=torch.cat([prev[1][:span], fleet.clock[span:]]))
     for peer, b in (("eq", fleet), ("lag", lag)):
         trk.observe_converged(peer, b)
         conv.observe_version_vector(peer, digest.version_vector(b))
     report, ms, _ = timed_ms(lambda: trk.frontier(fleet, peers=["eq", "lag"]))
-    now = np_svv(counters_to_numpy(fleet.clock), span).astype(np.uint64)
-    lag_svv = np.concatenate([prev[0][:1], now[1:]])
-    fleet_min = np.minimum(now.max(axis=0), lag_svv.max(axis=0))
-    want = np.maximum(np.minimum(now, lag_svv), fleet_min)
+    svv = np_svv(counters_to_numpy(fleet.clock), span).astype(np.uint64)
+    lag_svv = np.concatenate([prev[0][:1], svv[1:]])
+    fleet_min = np.minimum(svv.max(axis=0), lag_svv.max(axis=0))
+    want = np.maximum(np.minimum(svv, lag_svv), fleet_min)
     if not (np.array_equal(report.clock, fleet_min)
             and np.array_equal(report.subtree_clocks, want)):
         raise AssertionError("the frontier != the numpy min over the peers")
-    return report, ms, now
+    return report, ms, svv
 
 
 def kind_fleets(dev, rng):
@@ -2487,12 +2242,6 @@ def kind_fleets(dev, rng):
     card and on the CPU: GCounter (64 actors), PNCounter ([2, 32]), LWW
     and MVReg (K=8 x 64) at phase 8's widths, u64, 65,536 objects;
     Map<K, MVReg> at phase 9's (A=64, K=16, D=8, mv 8), u32, 8,192."""
-    import torch
-
-    from crdt_tpu_torch import (CrdtConfig, GCounterBatch, LWWRegBatch, MapBatch, MapKernel,
-                                MVRegBatch, MVRegKernel, PNCounterBatch)
-    from crdt_tpu_torch.dtypes import bias_np
-    from crdt_tpu_torch.serve import K_GCOUNTER, K_LWW, K_MAP, K_MVREG, K_PNCOUNTER
 
     n = READ_KIND_N
 
@@ -2525,13 +2274,12 @@ def kind_fleets(dev, rng):
     return build(dev), build("cpu"), keys
 
 
-def read_kinds(dev, rng, card: str) -> dict:
+def read_kinds(dev, rng) -> dict:
     """One 8,192-row batch of each other kind on the card, against the CPU."""
-    from crdt_tpu_torch.serve import KIND_NAMES, K_MAP, NO_MEMBER, gather
 
-    t0 = time.perf_counter()
+    t0 = now()
     on_card, on_cpu, keys = kind_fleets(dev, rng)
-    out = {"build_s": time.perf_counter() - t0}
+    out = {"build_s": now() - t0}
     for kind, batch in on_card.items():
         n = (READ_B if kind == K_MAP else READ_KIND_N)
         obj = rng.randint(0, n, READ_B)
@@ -2543,38 +2291,24 @@ def read_kinds(dev, rng, card: str) -> dict:
         frame, _, wall = timed_ms(lambda: gather(batch, obj, member=member))
         same_frame(frame, gather(on_cpu[kind], obj, member=member), KIND_NAMES[kind])
         out[KIND_NAMES[kind]] = {"objects": n, "gather_wall_ms": wall}
-    log(f"  other kinds, one {READ_B}-row batch each on the card == the CPU path [{card}]")
     return out
 
 
-def read_phase(dev, card: str, fleet, diverged):
+def read_phase(dev, fleet, diverged):
     """Phase 11: the read front-end on the north-star fleet (phase 10's
     replica P).  Returns the merge kernel's launches on the phase's path
     (the auditor's self-merge) and the fleet with the writes folded in,
     which phase 12 reconciles."""
-    import torch
-
-    from crdt_tpu_torch import (CapacityTracker, GcEngine, GcPolicy, HeatTracker, StabilityTracker,
-                                _build, kernel_observatory)
-    from crdt_tpu_torch.obs import convergence, heat as heat_mod, stability
-    from crdt_tpu_torch.dtypes import counters_to_numpy
-    from crdt_tpu_torch.oplog import OpApplier, derive_add_ctx
-    from crdt_tpu_torch.serve import (K_ORSWOT, NO_MEMBER, ST_NOT_STABLE, admit, gather, query,
-                                      stability_statuses)
-    from crdt_tpu_torch.sync import delta
-    from crdt_tpu_torch.utils.serde import from_binary
 
     uni = star_universe()
-    rng = np.random.RandomState(SEED + 11)
-    t_phase = time.perf_counter()
-    rep = {"card": card, "objects": N_TOTAL, "shape": [A, M, D], "batch": READ_B,
+    rng = seeded(11)
+    rep = {"objects": N_TOTAL, "shape": [A, M, D], "batch": READ_B,
            "fleet": "phase 10's replica P"}
-    torch.cuda.reset_peak_memory_stats()
     obs = kernel_observatory()
     with K2Launches() as k2:
-        t0 = time.perf_counter()
+        t0 = now()
         robj, rmember, wobj = read_traffic(rng)
-        rep["draw_s"] = time.perf_counter() - t0
+        rep["draw_s"] = now() - t0
         subtrees, span = stability.subtree_layout(N_TOTAL)
         conv = convergence.ConvergenceTracker()
         trk = StabilityTracker(tracker=conv, seed=SEED)
@@ -2595,32 +2329,32 @@ def read_phase(dev, card: str, fleet, diverged):
                     prev = (np_svv(counters_to_numpy(fleet.clock), span).astype(np.uint64),
                             fleet.clock)
                 w = chunks[i // (READ_NB // READ_WRITE_CHUNKS)]
-                t0 = time.perf_counter()
+                t0 = now()
                 ops, _ = derive_add_ctx(fleet.clock, w, rng.randint(0, A, w.size).astype(np.int32),
                                         member=rng.randint(1 << 16, (1 << 16) + 4, w.size)
                                         .astype(np.int32))
                 fleet, _ = applier.apply_ops(fleet, ops)
                 heat.record_writes(w, N_TOTAL)
-                torch.cuda.synchronize()
-                write_s.append(time.perf_counter() - t0)
+                sync()
+                write_s.append(now() - t0)
             sl = slice(i * READ_B, (i + 1) * READ_B)
             obj, member = robj[sl], rmember[sl]
             mode = "frontier" if i % READ_FRONTIER_EVERY == 0 else "eventual"
             if mode == "frontier":
-                report, ms, now = refresh_frontier(trk, conv, fleet, prev, span)
-                prev = (now, fleet.clock)
+                report, ms, svv = refresh_frontier(trk, conv, fleet, prev, span)
+                prev = (svv, fleet.clock)
                 fold_ms.append(ms)
             if not admit(mode, None, conv.version_vectors()["eq"][0],
                          None if report is None else report.clock).admitted:
                 raise AssertionError(f"a {mode} read batch was not admitted")
-            t0 = time.perf_counter()
+            t0 = now()
             frame = gather(fleet, obj, member=member)
-            walls.append((time.perf_counter() - t0) * 1e3)
-            t0 = time.perf_counter()
+            walls.append((now() - t0) * 1e3)
+            t0 = now()
             heat.record_reads(obj, N_TOTAL, mode)
-            torch.cuda.synchronize()
-            rec_ms.append((time.perf_counter() - t0) * 1e3)
-            t0 = time.perf_counter()
+            sync()
+            rec_ms.append((now() - t0) * 1e3)
+            t0 = now()
             same_frame(frame, cpu_frame(fleet, obj, member), f"read batch {i}")
             if mode == "frontier":
                 frame.status = stability_statuses(frame, trk.subtree_frontier_clocks(), span)
@@ -2630,8 +2364,8 @@ def read_phase(dev, card: str, fleet, diverged):
                     raise AssertionError(f"read batch {i}: the statuses != the numpy frontier")
                 for s in range(subtrees):
                     not_stable[s] += int((frame.status[obj // span == s] != 0).sum())
-            checks_s += time.perf_counter() - t0
-        torch.cuda.synchronize()
+            checks_s += now() - t0
+        sync()
         if not_stable[0] == 0 or any(not_stable[1:]):
             raise AssertionError(f"ST_NOT_STABLE rows by subtree {not_stable}: want some in the "
                                  "lagging subtree 0 and none elsewhere")
@@ -2641,8 +2375,6 @@ def read_phase(dev, card: str, fleet, diverged):
                    reads_per_s=n_reads / (sum(walls) / 1e3), heat_record_ms=rec_ms,
                    write_fold_s=write_s, frontier_ms=fold_ms, checks_s=checks_s,
                    not_stable_by_subtree=not_stable)
-        log(f"  {READ_NB} ORSWOT read batches of {READ_B}: each frame == the CPU path; frontier "
-            f"batches' statuses == the numpy frontier [{card}]")
 
         # the gather's device time and bytes bound, and its copy back
         dev_ms, d2h_ms, moved, bounds = [], [], [], []
@@ -2651,25 +2383,22 @@ def read_phase(dev, card: str, fleet, diverged):
             obj_t, mem_t = query._upload(robj[sl], rmember[sl], dev)
             b = obj_t.shape[0]
             out, ms, _ = timed_ms(lambda: query.KERNELS[K_ORSWOT](fleet, obj_t, mem_t))
-            t0 = time.perf_counter()
+            t0 = now()
             host = query._download(out)
-            d2h_ms.append((time.perf_counter() - t0) * 1e3)
+            d2h_ms.append((now() - t0) * 1e3)
             hits = int(((rmember[sl] >= 0) & (host[0] == 1)).sum())
             in_b = b * (16 + 4 * (A + M)) + hits * 4 * A
             out_b = sum(x.nbytes for x in (*host[:3], *host[3].values()))
             dev_ms.append(ms)
             moved.append(out_b)
             bounds.append(bound_ms(in_b, out_b, 0)[0])
-        # the heat tracker's two device passes on one batch, and the frontier fold
-        ids_t = torch.from_numpy(np.stack(heat_mod._pad_pow2(robj[:READ_B]))).to(dev)
-        sketch_ms = cuda_ms(lambda: heat_mod.sketch_update(*heat._table(), ids_t[0], ids_t[1]), 5)
-        hfold_ms = cuda_ms(lambda: heat_mod.subtree_fold(ids_t[0], ids_t[1], subtrees, span), 5)
-        front_ms = cuda_ms(lambda: stability.subtree_fold(fleet.clock, subtrees, span), 10)
-        front_bound = bound_ms(nbytes([fleet.clock]), subtrees * A * 4, 0)[0]
+        # the frontier fold's device time (the heat tracker's passes are in
+        # heat_record_ms, end to end)
         rep.update(gather_device_ms=dev_ms, gather_bound_ms=bounds, d2h_ms=d2h_ms,
-                   d2h_bytes=moved, sketch_ms=sketch_ms, heat_fold_ms=hfold_ms,
-                   frontier_fold_ms=front_ms, frontier_fold_bound_ms=front_bound)
-        log(f"  ORSWOT gather timed on {READ_TIMED} batches [{card}]")
+                   d2h_bytes=moved, frontier_fold_bound_ms=bound_ms(
+                       nbytes([fleet.clock]), subtrees * A * 4, 0)[0],
+                   frontier_fold_ms=cuda_ms(
+                       lambda: stability.subtree_fold(fleet.clock, subtrees, span), 10))
 
         # heat: the subtree totals and the sketch against the stream itself
         snap = heat.snapshot()
@@ -2688,11 +2417,9 @@ def read_phase(dev, card: str, fleet, diverged):
                 raise AssertionError(f"sketch entry {h} against a true count {true[h['obj']]}")
         rep.update(hot=hot, s_hat=snap["zipf"]["s_hat"], zipf_r2=snap["zipf"]["r2"],
                    reads_by_mode=snap["reads_by_mode"])
-        log(f"  heat: subtree totals == the stream's bincount; the sketch's top 8 == the "
-            f"stream's, every decoded count within [count - err, count]")
 
         # 4,096 reads against the scalar ReadCtx loop (bench_reads' parity gate)
-        t0 = time.perf_counter()
+        t0 = now()
         pobj = rng.randint(0, N_TOTAL, READ_PARITY)
         uniq, inv = np.unique(pobj, return_inverse=True)
         ids = delta.take_rows(fleet, rows_of(uniq, dev)).ids.cpu().numpy()
@@ -2711,17 +2438,14 @@ def read_phase(dev, card: str, fleet, diverged):
             if (got.val, got.add_clock.dots, got.rm_clock.dots) != (
                     want_val, rc.add_clock.dots, rc.rm_clock.dots):
                 raise AssertionError(f"read {i} of object {pobj[i]} != the scalar ReadCtx")
-        rep["parity_s"] = time.perf_counter() - t0
-        log(f"  {READ_PARITY} ORSWOT reads ({int((pmember >= 0).sum())} contains probes, "
-            f"{int(frame.val[pmember >= 0].sum())} hits) == the scalar ReadCtx loop "
-            f"({rep['parity_s']:.1f} s)")
+        rep["parity_s"] = now() - t0
 
         # the auditor: a sampled self-merge through the wire codec and K2
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        sync()
+        t0 = now()
         audit = trk.audit(fleet, uni, sample=READ_AUDIT)
-        torch.cuda.synchronize()
-        rep["audit_s"] = time.perf_counter() - t0
+        sync()
+        rep["audit_s"] = now() - t0
         if not audit.ok or audit.sampled != READ_AUDIT:
             raise AssertionError(f"audit: {audit.violations}, {audit.sampled} sampled")
         k2.check("the auditor's self-merge")
@@ -2740,21 +2464,14 @@ def read_phase(dev, card: str, fleet, diverged):
             raise AssertionError(f"GcEngine.due against the watermark {wm['state']}")
         obs.set_enabled(False)
         table = obs.table()["orswot_merge"]
-        launches = _build.launch_counts()["orswot_merge"]
+        launches = k2_count()
         if launches == 0 or len(k2.checked) != launches or table["timed"] != launches:
             raise AssertionError(f"the merge kernel launched {launches} times, "
                                  f"{len(k2.checked)} checked, observed {table}")
         rep.update(audit_checks=audit.checks, k2=table, capacity=wm, device_memory=mem,
                    gc_due=[eng.due(1), eng.due(8)], stability=trk.snapshot()["aging"])
-        log(f"  audit of {READ_AUDIT} rows: 0 violations, {len(k2.checked)} merge-kernel launches "
-            f"bit-equal to merge_reference [{card}]")
-        rep["kinds"] = read_kinds(dev, rng, card)
-    rep["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    rep["phase_s"] = time.perf_counter() - t_phase
-    log(f"  phase 11 {rep['phase_s']:.1f} s [{card}]")
-    print("reads " + json.dumps(rep, default=lambda x: x.tolist() if hasattr(x, "tolist")
-                                else str(x)), flush=True)
-    return launches, fleet
+        rep["kinds"] = read_kinds(dev, rng)
+    return launches, rep, fleet
 
 
 # -- phase 12 ------------------------------------------------------------------
@@ -2794,17 +2511,12 @@ class SocketCount:
         self.inner.close()
 
 
-def dial_through_roster(card: str):
+def dial_through_roster():
     """Step 2 of phase 12: a listener on 127.0.0.1:0 and a dial to it
     through ``FlappingDialer(schedule=CLUSTER_DIAL)``, each attempt
     recorded in a ``Membership(suspect_after=2)``.  Returns both connected
     sockets, the roster, the refusals' ``cluster.peer_state`` events and
     the flight recorder's last sequence number before the dial."""
-    import socket
-
-    from crdt_tpu_torch.cluster import FlappingDialer, Membership, SUSPECT
-    from crdt_tpu_torch.error import PeerUnavailableError
-    from crdt_tpu_torch.obs import convergence, events
 
     srv = socket.socket()
     srv.bind(("127.0.0.1", 0))
@@ -2833,8 +2545,6 @@ def dial_through_roster(card: str):
         x.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
     refusals = [e["fields"] for e in events.recorder().snapshot("cluster.peer_state")
                 if e["seq"] > mark and e["fields"]["peer"] == "q"]
-    log(f"  dial: {dialer.refused} refusals, then connected; roster {roster.snapshot()['q']} "
-        f"[{card}]")
     return sock, conn, roster, refusals, mark
 
 
@@ -2844,17 +2554,14 @@ def cluster_sessions(sa, sb, ra, rb):
     returned (``cluster.linger``); then each side closes its own end.  Returns both reports, the seconds
     of the syncs and of the whole exchange with the closes, and each
     link's ``counts()`` when its session returned."""
-    import threading
-
-    from crdt_tpu_torch.cluster import linger
 
     out, err, done = {}, [], threading.Event()
-    t0 = time.perf_counter()
+    t0 = now()
 
     def run_b():
         try:
             out["b"] = sb.sync(rb)
-            out["b_s"], out["b_counts"] = time.perf_counter() - t0, rb.counts()
+            out["b_s"], out["b_counts"] = now() - t0, rb.counts()
             linger(rb, done.is_set, CLUSTER_JOIN_S)
             rb.close()
         except BaseException as e:  # re-raised in the caller's thread
@@ -2864,7 +2571,7 @@ def cluster_sessions(sa, sb, ra, rb):
     t.start()
     try:
         out["a"] = sa.sync(ra)
-        out["a_s"], out["a_counts"] = time.perf_counter() - t0, ra.counts()
+        out["a_s"], out["a_counts"] = now() - t0, ra.counts()
     finally:
         done.set()
         linger(ra, lambda: not t.is_alive(), CLUSTER_JOIN_S)
@@ -2874,30 +2581,24 @@ def cluster_sessions(sa, sb, ra, rb):
         raise AssertionError("the peer session over TCP hung")
     if err:
         raise err[0]
-    return (out["a"], out["b"], max(out["a_s"], out["b_s"]), time.perf_counter() - t0,
+    return (out["a"], out["b"], max(out["a_s"], out["b_s"]), now() - t0,
             (out["a_counts"], out["b_counts"]))
 
 
-def cluster_phase(dev, card: str, fleet):
+def cluster_phase(dev, fleet):
     """Phase 12: phase 11's replica P and a copy, each diverged on its own
     1% of the rows, reconciled over loopback TCP by two flat sessions
     through ``ResilientTransport(FaultyTransport(TcpTransport))`` with
     faults injected on both sides (A=64, M=16, D=2, u32).  Returns the
     merge kernel's launches on the phase's path (the sessions' applies)
     and the reconciled replica P, which phase 13 gossips."""
-    import torch
-
-    from crdt_tpu_torch import SyncSession, _build, kernel_observatory
-    from crdt_tpu_torch.cluster import ALIVE, FaultPlan, FaultyTransport, ResilientTransport
-    from crdt_tpu_torch.cluster import RetryPolicy, TcpTransport
-    from crdt_tpu_torch.obs import events
 
     uni = star_universe()
-    rng = np.random.RandomState(SEED + 12)
-    t_phase = time.perf_counter()
-    rep = {"card": card, "objects": N_TOTAL, "shape": [A, M, D], "divergence": SYNC_DIV,
-           "fleet": "phase 11's replica P as it stands", "faults": CLUSTER_FAULTS, "policy": CLUSTER_POLICY}
-    torch.cuda.reset_peak_memory_stats()
+    rng = seeded(12)
+    t_phase = now()
+    rep = {"objects": N_TOTAL, "shape": [A, M, D], "divergence": SYNC_DIV,
+           "fleet": "phase 11's replica P as it stands", "faults": CLUSTER_FAULTS,
+           "policy": CLUSTER_POLICY}
     with K2Launches() as k2:
         # 1. the second replica: P as phase 11 left it (its op writes leave
         # member slots out of ascending-id order) and its copy Q each take
@@ -2907,13 +2608,11 @@ def cluster_phase(dev, card: str, fleet):
         del fleet
         planted = np.union1d(rows_p, rows_q)
         rep["full_state_bytes"], rep["full_state_encode_s"] = full_state_bytes(p, uni)
-        torch.cuda.synchronize()
-        rep["build_s"] = time.perf_counter() - t_phase
-        log(f"  replicas: P and Q = P, {len(rows_p)} + {len(rows_q)} rows diverged by one add "
-            f"each ({len(planted)} distinct); full state {rep['full_state_bytes']} B")
+        sync()
+        rep["build_s"] = now() - t_phase
 
         # 2. the link, dialed through the roster
-        sock, conn, roster, refusals, mark = dial_through_roster(card)
+        sock, conn, roster, refusals, mark = dial_through_roster()
         ends, taps = [], []
         for k, (x, name) in enumerate(((sock, "p"), (conn, "q"))):
             wire = SocketCount(TcpTransport(x, default_timeout=60.0))
@@ -2932,10 +2631,10 @@ def cluster_phase(dev, card: str, fleet):
         obs.set_enabled(True)
         try:
             ra, rb, sync_s, link_s, at_sync = cluster_sessions(sa, sb, *ends)
-            torch.cuda.synchronize()
+            sync()
         finally:
             obs.set_enabled(False)
-        launches = _build.launch_counts()["orswot_merge"]
+        launches = k2_count()
         table = obs.table()["orswot_merge"]
         if ra.converged and rb.converged:
             roster.record_success("q")
@@ -2956,7 +2655,7 @@ def cluster_phase(dev, card: str, fleet):
         if launches == 0 or len(k2.seen) != launches:
             raise AssertionError(f"the merge kernel launched {launches} times in the sessions, "
                                  f"{len(k2.seen)} captured")
-        session_checks(p, q, sa, sb, (ra, rb), planted, uni, rng, k2, card, self_merge=True)
+        session_checks(p, q, sa, sb, (ra, rb), planted, uni, rng, k2, self_merge=True)
         injected = {kind: sum(f.injected[kind] for _, f in taps) for kind in CLUSTER_FAULTS}
         counts = [e.counts() for e in ends]
         recovered = {k: sum(c[k] for c in counts) for k in ("retransmits", "duplicates",
@@ -2968,27 +2667,14 @@ def cluster_phase(dev, card: str, fleet):
         sync_s=sync_s, link_s=link_s, k2_launches=launches,
         k2_device_ms=table["device_ms_total"], k2_timed=table["timed"],
         delta_ratio=max(r.delta_ratio(rep["full_state_bytes"]) for r in (ra, rb)),
-        transitions=transitions, roster=roster.snapshot(), injected_total=injected,
-        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        transitions=transitions, roster=roster.snapshot(), injected_total=injected)
     for side, r, end, (wire, faulty), synced in (("p", ra, ends[0], taps[0], at_sync[0]),
                                                   ("q", rb, ends[1], taps[1], at_sync[1])):
-        prof = r.profile
-        rep[side] = {
-            "wall_s": prof.wall_ns / 1e9,
-            "split_s": {c: getattr(prof, f"{c}_ns") / 1e9
-                        for c in ("serialize", "network", "kernel", "other", "unaccounted")},
-            "bytes": {k: getattr(r, f"{k}_bytes_sent") for k in ("hello", "digest", "delta",
-                                                                  "full")},
-            "delta_chunks": r.delta_chunks_sent, "diverged": r.diverged,
-            "socket_frames": wire.frames, "socket_bytes": wire.bytes,
-            "counts": synced, "counts_closed": end.counts(), "rtt": end.rtt.snapshot(),
-            "rto_s": end.current_rto(), "injected": faulty.injected}
-        log(f"  session {side} over TCP: {rep[side]['wall_s']:.3f} s [{card}]")
-    rep["phase_s"] = time.perf_counter() - t_phase
-    log(f"  sessions over TCP {sync_s:.3f} s; every merge-kernel launch bit-equal to "
-        f"merge_reference; peer q alive -> suspect -> alive [{card}]")
-    print("cluster " + json.dumps(rep), flush=True)
-    return launches, sa.batch
+        rep[side] = session_row(
+            r, delta_chunks=r.delta_chunks_sent, socket_frames=wire.frames,
+            socket_bytes=wire.bytes, counts=synced, counts_closed=end.counts(),
+            rtt=end.rtt.snapshot(), rto_s=end.current_rto(), injected=faulty.injected)
+    return launches, rep, sa.batch
 
 
 # -- phase 13 ------------------------------------------------------------------
@@ -3034,7 +2720,6 @@ GOSSIP_PROFILE_DIR = os.path.join("build", "chip_smoke_profile_13")
 def prom_name_patterns() -> dict:
     """kind -> the compiled patterns of every Prometheus family name the
     port's publisher can render (``*`` segments as identifiers)."""
-    from crdt_tpu_torch.obs import metrics, publish
 
     out = {}
     for pattern, kind in publish.names():
@@ -3069,16 +2754,14 @@ def parse_prom(text: str, patterns: dict, what: str) -> dict:
 
 def http_get(server, path: str) -> tuple:
     """``(status, body text, ms)`` of one GET against an exporter."""
-    import urllib.error
-    import urllib.request
 
-    t0 = time.perf_counter()
+    t0 = now()
     try:
         with urllib.request.urlopen(f"http://127.0.0.1:{server.port}{path}", timeout=60) as r:
             status, body = r.status, r.read().decode()
     except urllib.error.HTTPError as e:
         status, body = e.code, e.read().decode()
-    return status, body, (time.perf_counter() - t0) * 1e3
+    return status, body, (now() - t0) * 1e3
 
 
 def gossip_scrape(fleet, patterns: dict, route_ms: dict, exact: bool, k2_calls: int) -> list:
@@ -3091,11 +2774,10 @@ def gossip_scrape(fleet, patterns: dict, route_ms: dict, exact: bool, k2_calls: 
     lie between the node's ``ServeLoop.counts()`` before and after (equal
     to it when ``exact``: the reader stopped).  Returns each node's
     ``/fleet?format=json`` body."""
-    from crdt_tpu_torch import _build
 
     fleets = []
     for m in fleet:
-        before = (_build.launch_counts()["orswot_merge"], m.node.serve_loop().counts())
+        before = (k2_count(), m.node.serve_loop().counts())
         bodies = {}
         for route in GOSSIP_ROUTES:
             status, body, ms = http_get(m.server, route)
@@ -3103,7 +2785,7 @@ def gossip_scrape(fleet, patterns: dict, route_ms: dict, exact: bool, k2_calls: 
             if status != 200:
                 raise AssertionError(f"{m.name} {route}: HTTP {status}: {body[:300]}")
             bodies[route] = body
-        after = (_build.launch_counts()["orswot_merge"], m.node.serve_loop().counts())
+        after = (k2_count(), m.node.serve_loop().counts())
         status, body, _ = http_get(m.server, "/no-such-route")
         if status != 404 or not body.startswith("not found"):
             raise AssertionError(f"{m.name}: an unknown route answered {status}")
@@ -3124,7 +2806,7 @@ def gossip_scrape(fleet, patterns: dict, route_ms: dict, exact: bool, k2_calls: 
     return fleets
 
 
-def gossip_fleet_checks(fleet, fleets: list, card: str) -> dict:
+def gossip_fleet_checks(fleet, fleets: list) -> dict:
     """The telemetry plane after the reader stopped: every node's
     ``/fleet`` lists the three nodes, its own slice carries its scheduler's
     counts, and the fleet counter of the schedulers' session legs is the
@@ -3133,8 +2815,6 @@ def gossip_fleet_checks(fleet, fleets: list, card: str) -> dict:
     sketches, and each node's ``/heat?plan=mesh:8`` report equals
     ``score_plan`` of its heat vector.  Returns the merged snapshot's bytes
     and nodes."""
-    from crdt_tpu_torch.obs import heat as heat_mod
-    from crdt_tpu_torch.obs.fleet import FleetSnapshot, encode_snapshot
 
     names = [m.name for m in fleet]
     for m, view in zip(fleet, fleets):
@@ -3166,13 +2846,10 @@ def gossip_fleet_checks(fleet, fleets: list, card: str) -> dict:
         raise AssertionError(f"fleet_heat's hot list {got[:4]}... differs from merge_hot's "
                              f"{want[:4]}...")
     frame = encode_snapshot(snap)
-    log(f"  telemetry: every node's /fleet lists {names}; fleet session legs == the slices' "
-        f"sum; fleet_heat == merge_hot on {len(got)} objects; /heat?plan=mesh:8 == score_plan; "
-        f"merged snapshot {len(frame)} B of {len(snap.slices)} nodes [{card}]")
     return {"bytes": len(frame), "nodes": len(snap.slices), "hot_objects": len(got)}
 
 
-def profiled_round(fleet, r: int, card: str) -> tuple:
+def profiled_round(fleet, r: int) -> tuple:
     """One more fleet round, its first scheduler's round (that node's two
     legs, and their acceptors' on the peers) under ``tracing.profile``:
     the record, and the device's busy share of that scheduler round's wall
@@ -3181,12 +2858,8 @@ def profiled_round(fleet, r: int, card: str) -> tuple:
     The busy time is summed over the profiler's raw device events:
     ``key_averages()`` builds an object per event, far slower for a
     round's ~10^5 kernels and their host ops."""
-    import shutil
 
     from torch.autograd import DeviceType
-
-    from crdt_tpu_torch.obs import events
-    from crdt_tpu_torch.utils import tracing
 
     unavailable = tracing.unavailable_count()
     try:
@@ -3209,7 +2882,6 @@ def profiled_round(fleet, r: int, card: str) -> tuple:
     out = {"node": fleet[0].name, "wall_s": wall, "fleet_round_wall_s": x["wall_s"],
            "busy_ms": busy, "busy_share": busy / (wall * 1e3), "kernels": len(device),
            "trace_bytes": trace}
-    log(f"  profiled idle round {r}: device busy share {out['busy_share']} [{card}]")
     return x, out
 
 
@@ -3222,11 +2894,6 @@ class GossipMember:
     ``(peer, report or exception, wall seconds)``."""
 
     def __init__(self, i: int, batch, uni, **node_kw):
-        import socket
-        import threading
-
-        from crdt_tpu_torch.cluster import ClusterNode
-
         self.i, self.name = i, f"n{i}"
         self.node = ClusterNode(self.name, batch, uni, digest_tree=True,
                                 busy_timeout_s=GOSSIP_BUSY_S, **node_kw)
@@ -3241,10 +2908,6 @@ class GossipMember:
         self.listener.start()
 
     def link(self, sock):
-        import socket
-
-        from crdt_tpu_torch.cluster import ResilientTransport, RetryPolicy, TcpTransport
-
         sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         self.links += 1
         return ResilientTransport(TcpTransport(sock, default_timeout=60.0),
@@ -3252,9 +2915,6 @@ class GossipMember:
                                   seed=SEED + 130 + 100 * self.i + self.links)
 
     def _listen(self):
-        import socket
-        import threading
-
         while not self.stop.is_set():
             try:
                 sock, _ = self.srv.accept()
@@ -3268,25 +2928,18 @@ class GossipMember:
             t.start()
 
     def _serve(self, sock):
-        from crdt_tpu_torch.cluster import hello_accept
-
         link = self.link(sock)
-        peer, t0 = "?", time.perf_counter()
+        peer, t0 = "?", now()
         try:
             peer = hello_accept(link, timeout=30.0)
             self.inbound.append((peer, self.node.accept(link, peer_id=peer),
-                                 time.perf_counter() - t0))
+                                 now() - t0))
         except Exception as e:  # noqa: BLE001 - recorded, and the phase fails on it
-            self.inbound.append((peer, e, time.perf_counter() - t0))
+            self.inbound.append((peer, e, now() - t0))
         finally:
             link.close()
 
     def scheduler(self, fleet, fanout: int = 2):
-        import socket
-
-        from crdt_tpu_torch.cluster import GossipScheduler, Membership, hello_dial
-        from crdt_tpu_torch.error import PeerUnavailableError
-
         roster = Membership()
         for other in fleet:
             if other is not None and other is not self:
@@ -3324,8 +2977,6 @@ class GossipReader:
     node's last frame."""
 
     def __init__(self, members, robj, rmember):
-        import threading
-
         self.members, self.robj, self.rmember = members, robj, rmember
         self.acks = [None] * len(members)
         self.tokens = [None] * len(members)
@@ -3335,8 +2986,6 @@ class GossipReader:
         self.thread = threading.Thread(target=self._run, name="gossip-reader", daemon=True)
 
     def _request(self, k: int, b: int):
-        from crdt_tpu_torch.serve import ReadRequest
-
         n = self.robj.size // GOSSIP_READ_B
         sl = slice((b % n) * GOSSIP_READ_B, (b % n + 1) * GOSSIP_READ_B)
         obj, member = self.robj[sl].copy(), self.rmember[sl].copy()
@@ -3353,8 +3002,6 @@ class GossipReader:
         return ReadRequest.reads(obj, member=member, mode=mode, require=require), probe
 
     def _run(self):
-        from crdt_tpu_torch.serve import decode_result_frame, encode_read_request
-
         call = 0
         try:
             while not self.stop.is_set():
@@ -3384,20 +3031,17 @@ class GossipReader:
 def gossip_writes(member, wobj, rng, kept):
     """Mint ``GOSSIP_WRITES // GOSSIP_NODES`` adds on ``member``'s node from
     the write stream (actor i + 1) and submit them; returns their seconds."""
-    import torch
-
-    from crdt_tpu_torch.oplog import derive_add_ctx
 
     node, i = member.node, member.i
     k = GOSSIP_WRITES // GOSSIP_NODES
     obj = wobj[:k]
     mem = (GOSSIP_MEMBER0 + rng.randint(0, GOSSIP_MEMBERS, k)).astype(np.int32)
     torch.cuda.empty_cache()  # the fold's whole-fleet temporaries want contiguous room
-    t0 = time.perf_counter()
+    t0 = now()
     ops, _ = derive_add_ctx(node.write_clock(), obj, np.full(k, i + 1, np.int32), member=mem)
     node.submit_ops(ops)
     ack = node.write_vv()
-    secs = time.perf_counter() - t0
+    secs = now() - t0
     kept[i].append(ops)
     return secs, ack, obj, mem
 
@@ -3411,20 +3055,18 @@ def gossip_round(fleet, r: int, profile_dir=None) -> dict:
     bound's designed behaviour, counted apart).  With ``profile_dir`` the
     first scheduler's round runs under ``tracing.profile``: the record's
     ``profile`` is ``(profiler or None, that round's wall seconds)``."""
-    from crdt_tpu_torch.obs import events
-    from crdt_tpu_torch.utils import tracing
 
     marks = [len(m.inbound) for m in fleet]
-    t0 = time.perf_counter()
+    t0 = now()
     reports, failed, busy, health, profiled = [], [], set(), {}, None
     for m in fleet:
         seen = events.recorder().snapshot()
         mark = seen[-1]["seq"] if seen else 0
         if profile_dir is not None and profiled is None:
             with tracing.profile(profile_dir) as prof:
-                t_prof = time.perf_counter()
+                t_prof = now()
                 rep = m.sched.run_round()
-                profiled = (prof, time.perf_counter() - t_prof)
+                profiled = (prof, now() - t_prof)
         else:
             rep = m.sched.run_round()
         health[m.name] = rep.health
@@ -3433,7 +3075,7 @@ def gossip_round(fleet, r: int, profile_dir=None) -> dict:
             f = e["fields"]
             if e["seq"] > mark and f["outcome"] == "failed":
                 failed.append((m.name, f["peer"], "dial", f["error"]))
-    wall = time.perf_counter() - t0
+    wall = now() - t0
     for m, mark in zip(fleet, marks):
         for peer, res, _ in m.inbound[mark:]:
             if isinstance(res, BaseException):
@@ -3449,7 +3091,7 @@ def gossip_round(fleet, r: int, profile_dir=None) -> dict:
             "diverged": sum(x[3].diverged for x in reports), "profile": profiled}
 
 
-def gossip_checks(fleet, start_host, kept, written, k2, dev, card: str):
+def gossip_checks(fleet, start_host, kept, written, k2, dev):
     """Phase 13's plane checks: the rows no write touched equal the starting
     replica on every node, bit for bit; every node's batch, self-merged,
     equals the first node's, which equals the merge kernel's join of the
@@ -3459,22 +3101,17 @@ def gossip_checks(fleet, start_host, kept, written, k2, dev, card: str):
     and an op fold's whole-fleet temporaries do not fit the card at once).
     Each merge-kernel launch is held against ``merge_reference``.  Closes
     the fleet."""
-    import torch
-
-    from crdt_tpu_torch import OrswotBatch
-    from crdt_tpu_torch.oplog import OpApplier, OpBatch
 
     uni = fleet[0].node.universe
     kept_rows = np.ones(N_TOTAL, bool)
     kept_rows[np.unique(written)] = False
     batches = [m.node.batch for m in fleet]
     for lo in range(0, N_TOTAL, CHUNK):
-        rows = torch.from_numpy(kept_rows[lo:lo + CHUNK]).to(dev)
-        for name in PLANES:
-            ref = start_host[name][lo:lo + CHUNK].to(dev)[rows]
-            for m, batch in zip(fleet, batches):
-                if not torch.equal(getattr(batch, name)[lo:lo + CHUNK][rows], ref):
-                    raise AssertionError(f"{m.name}: {name} changed on a row no write touched")
+        sl, rows = slice(lo, lo + CHUNK), torch.from_numpy(kept_rows[lo:lo + CHUNK]).to(dev)
+        ref = flat_rows(tree_map(lambda x: x[sl].to(dev), start_host), rows)
+        for m, batch in zip(fleet, batches):
+            same_planes(flat_rows(flat_rows(batch, sl), rows), ref,
+                        f"{m.name} on a row no write touched, against the start")
     del batches
     merged = None
     for m in fleet:
@@ -3491,7 +3128,7 @@ def gossip_checks(fleet, start_host, kept, written, k2, dev, card: str):
     fleet.clear()
     gc.collect()  # the members' scheduler and dialer refer to each other
     torch.cuda.empty_cache()
-    start = OrswotBatch(*(start_host[k].to(dev) for k in PLANES))
+    start = tree_map(lambda x: x.to(dev), start_host)
     join = None
     for ops in kept:
         applied, _ = OpApplier(uni).apply_ops(start, OpBatch.concat(ops))
@@ -3501,48 +3138,35 @@ def gossip_checks(fleet, start_host, kept, written, k2, dev, card: str):
         torch.cuda.empty_cache()
     same_planes(merged, join, "the nodes self-merged against the merge kernel's join of the "
                 "starting replica and every node's writes")
-    log(f"  every node self-merged == K2's join of the start and the {len(kept)} nodes' op "
-        f"batches; the {int(kept_rows.sum())} rows no write touched == the start, on every "
-        f"node [{card}]")
 
 
-def gossip_phase(dev, card: str, start):
+def gossip_phase(dev, start):
     """Phase 13: three ``ClusterNode``s on the card (phase 12's replica P
     and two copies) gossip by their schedulers over loopback TCP while they
     take writes and a reader thread serves reads, until the nodes' digests
     agree and a whole round finds no divergence.  Returns the merge
     kernel's launches on the phase's path (the sessions' applies and the
     auditor's self-merges)."""
-    import torch
 
-    from crdt_tpu_torch import OrswotBatch, _build, kernel_observatory
-    from crdt_tpu_torch.serve import ReadRequest, encode_read_request, visible_vv
-
-    from crdt_tpu_torch.obs import CapacityTracker, FleetObservatory, MetricsRegistry
-    from crdt_tpu_torch.obs import convergence as obs_convergence
-    from crdt_tpu_torch.obs.export import start_metrics_server
-
-    t_phase = time.perf_counter()
-    rng = np.random.RandomState(SEED + 13)
+    t_phase = now()
+    rng = seeded(13)
     patterns, route_ms, servers, profiled = prom_name_patterns(), {}, [], None
-    rep = {"card": card, "objects": N_TOTAL, "shape": [A, M, D], "nodes": GOSSIP_NODES,
+    rep = {"objects": N_TOTAL, "shape": [A, M, D], "nodes": GOSSIP_NODES,
            "fleet": "phase 12's replica P and two copies", "policy": GOSSIP_POLICY,
            "writes_per_round": GOSSIP_WRITES, "write_rounds": GOSSIP_WRITE_ROUNDS,
            "members": [GOSSIP_MEMBER0, GOSSIP_MEMBER0 + GOSSIP_MEMBERS - 1],
            "read_batch": GOSSIP_READ_B, "read_pause_s": GOSSIP_READ_PAUSE_S,
            "park_timeout_s": GOSSIP_PARK_S}
-    torch.cuda.reset_peak_memory_stats()
     uni = star_universe()
     robj, rmember, wobj = read_traffic(rng)
     # the start stays on the host for the checks: n0 holds its planes only
     # until its first fold replaces them
-    start_host = {k: getattr(start, k).cpu() for k in PLANES}
+    start_host = tree_map(torch.Tensor.cpu, start)
     fleet, kept, written, rounds, write_s = [], [[] for _ in range(GOSSIP_NODES)], [], [], 0.0
     with K2Launches() as k2:
         try:
             for i in range(GOSSIP_NODES):
-                batch = start if i == 0 else OrswotBatch(*(getattr(start, k).clone()
-                                                           for k in PLANES))
+                batch = start if i == 0 else tree_map(torch.clone, start)
                 reg = MetricsRegistry()
                 fleet.append(GossipMember(i, batch, uni, registry=reg,
                                           observatory=FleetObservatory(f"n{i}", registry=reg),
@@ -3553,19 +3177,19 @@ def gossip_phase(dev, card: str, start):
                 m.node.serve_loop().park_timeout_s = GOSSIP_PARK_S
                 m.observatory = m.node.observatory
                 m.server = start_metrics_server(
-                    port=0, registry=m.node.registry, tracker=obs_convergence.tracker(),
+                    port=0, registry=m.node.registry, tracker=convergence.tracker(),
                     observatory=m.observatory, capacity=m.node.capacity_tracker,
                     stability=m.node.stability, heat=m.node.heat)
                 servers.append(m.server)
-            torch.cuda.synchronize()
-            rep["build_s"] = time.perf_counter() - t_phase
+            sync()
+            rep["build_s"] = now() - t_phase
             reader = GossipReader(fleet, robj, rmember)
             obs = kernel_observatory()
             obs.reset()
             _build.reset_launch_counts()
             k2_mark = len(k2.seen)
             obs.set_enabled(True)
-            t_rounds = time.perf_counter()
+            t_rounds = now()
             reader.thread.start()
             try:
                 for r in range(1, GOSSIP_MAX_ROUNDS + 1):
@@ -3587,8 +3211,6 @@ def gossip_phase(dev, card: str, start):
                                                  for d in digests[1:])
                     x["allocated_gb"] = torch.cuda.memory_allocated() / 1e9
                     rounds.append(x)
-                    equal = "not compared" if x["digests_equal"] is None else x["digests_equal"]
-                    log(f"  round {r}: {x['wall_s']:.3f} s, digests equal: {equal} [{card}]")
                     if x["failed"]:
                         raise AssertionError(f"round {r}: failed session legs {x['failed']}")
                     gossip_scrape(fleet, patterns, route_ms, exact=False,
@@ -3597,7 +3219,7 @@ def gossip_phase(dev, card: str, start):
                         break
                 if rounds[-1]["digests_equal"]:
                     # one more round, idle, under the profiler
-                    x, profiled = profiled_round(fleet, len(rounds) + 1, card)
+                    x, profiled = profiled_round(fleet, len(rounds) + 1)
                     x["digests_equal"] = None
                     rounds.append(x)
                     if x["failed"] or x["diverged"]:
@@ -3606,10 +3228,10 @@ def gossip_phase(dev, card: str, start):
             finally:
                 reader.stop.set()
                 reader.thread.join(timeout=GOSSIP_JOIN_S)
-            torch.cuda.synchronize()
-            rounds_s = time.perf_counter() - t_rounds
+            sync()
+            rounds_s = now() - t_rounds
             obs.set_enabled(False)
-            launches = _build.launch_counts()["orswot_merge"]
+            launches = k2_count()
             table = obs.table()["orswot_merge"]
             if reader.thread.is_alive():
                 raise AssertionError("the reader thread hung")
@@ -3619,7 +3241,7 @@ def gossip_phase(dev, card: str, start):
                 raise AssertionError(f"no convergence in {len(rounds)} rounds")
             fleets = gossip_scrape(fleet, patterns, route_ms, exact=True,
                                    k2_calls=len(k2.seen) - k2_mark)
-            rep["fleet_snapshot"] = gossip_fleet_checks(fleet, fleets, card)
+            rep["fleet_snapshot"] = gossip_fleet_checks(fleet, fleets)
             if launches == 0 or len(k2.seen) != launches:
                 raise AssertionError(f"the merge kernel launched {launches} times in the phase, "
                                      f"{len(k2.seen)} captured")
@@ -3639,19 +3261,9 @@ def gossip_phase(dev, card: str, start):
             frames = [m.node.serve_loop().serve_frames([req])[0][0] for m in fleet]
             if any(f is None or f != frames[0] for f in frames):
                 raise AssertionError("one eventual request: the nodes' result frames differ")
-            log(f"  after convergence one eventual request frame gives {len(frames[0])}-byte "
-                f"result frames, byte-equal on the {len(fleet)} nodes")
-            # visible_vv: no memo, so every serve and every parked poll pays it
-            vv_ms = [timed_ms(lambda: visible_vv(fleet[0].node.batch))[1:] for _ in range(10)]
-            rep["visible_vv_ms"] = {"device": sum(v[0] for v in vv_ms) / 10,
-                                    "wall": sum(v[1] for v in vv_ms) / 10,
-                                    "bound": N_TOTAL * A * 4 / HBM_BYTES_PER_S * 1e3}
-            log(f"  visible_vv on one node: {rep['visible_vv_ms']['device']:.4f} ms on the device, "
-                f"{rep['visible_vv_ms']['wall']:.4f} ms wall (mean of 10; bytes bound "
-                f"{rep['visible_vv_ms']['bound']:.4f} ms) [{card}]")
             rep["scheduler_counts"] = {m.name: m.sched.counts() for m in fleet}
             obs_counts = {m.name: m.observatory.counts() for m in fleet}
-            gossip_checks(fleet, start_host, kept, np.concatenate(written), k2, dev, card)
+            gossip_checks(fleet, start_host, kept, np.concatenate(written), k2, dev)
         finally:
             for server in servers:
                 server.stop()
@@ -3662,12 +3274,9 @@ def gossip_phase(dev, card: str, start):
     rows = sum(c["rows"] for c in calls)
     e2e = sum(c["e2e_s"] for c in calls)
     stage = {k: sum(c["stage_s"][k] for c in calls) for k in ("decode", "serve", "encode")}
-    sessions = [{"round": x["round"], "node": node, "peer": peer, "leg": leg,
-                 "diverged": r.diverged, "tree": r.tree_mode, "wall_s": r.profile.wall_ns / 1e9,
-                 "fleet_bytes_sent": r.fleet_bytes_sent, "fleet_nodes": r.fleet_nodes,
-                 "split_s": {c: getattr(r.profile, f"{c}_ns") / 1e9 for c in
-                             ("serialize", "network", "kernel", "other", "unaccounted")},
-                 "bytes_sent": r.bytes_sent}
+    sessions = [session_row(r, round=x["round"], node=node, peer=peer, leg=leg,
+                            tree=r.tree_mode, fleet_bytes_sent=r.fleet_bytes_sent,
+                            fleet_nodes=r.fleet_nodes, bytes_sent=r.bytes_sent)
                 for x in rounds for node, peer, leg, r in x["reports"]]
     n_writes = int(sum(o.size for o in written))
     rep.update(
@@ -3683,8 +3292,7 @@ def gossip_phase(dev, card: str, start):
         reads=rows, read_calls=len(calls), read_batches=reader.batches,
         reads_per_s=rows / e2e if e2e else None, read_e2e_s=e2e, read_stage_s=stage,
         ryw_probed=reader.ryw_checked, parked=parked, rejected=rejected,
-        park_wait_s=sum(c["park_wait_s"] for c in counts),
-        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        park_wait_s=sum(c["park_wait_s"] for c in counts))
     leg_wall = sum(s["wall_s"] for s in sessions)
     obs_s = {k: sum(c[k] for c in obs_counts.values()) for k in ("encode_s", "merge_s")}
     rep["observatory"] = {
@@ -3695,16 +3303,7 @@ def gossip_phase(dev, card: str, start):
     rep["scrape_ms"] = {route: {"p50": float(np.median(ms)), "max": max(ms), "n": len(ms)}
                         for route, ms in route_ms.items()}
     rep["profiled_round"] = profiled
-    rep["phase_s"] = time.perf_counter() - t_phase
-    log(f"  telemetry: FLEET frames on every leg [{card}]")
-    log(f"  {len(rounds)} rounds in {rounds_s:.3f} s [{card}]")
-    log(f"  writes: {n_writes} acknowledged; {reader.ryw_checked} RYW probes of acknowledged "
-        f"writes read as members [{card}]")
-    log(f"  every merge-kernel launch bit-equal to merge_reference; phase 13 "
-        f"{rep['phase_s']:.1f} s [{card}]")
-    print("gossip " + json.dumps(rep, default=lambda x: x.tolist() if hasattr(x, "tolist")
-                                 else str(x)), flush=True)
-    return launches
+    return launches, rep
 
 
 # -- phase 14 ------------------------------------------------------------------
@@ -3740,7 +3339,6 @@ def host_available() -> int:
 
 def durable_room() -> tuple:
     """``(free bytes on DURABLE_DIR's filesystem, host available bytes)``."""
-    import shutil
 
     os.makedirs(DURABLE_DIR, exist_ok=True)
     return shutil.disk_usage(DURABLE_DIR).free, host_available()
@@ -3749,11 +3347,6 @@ def durable_room() -> tuple:
 def npz_pin_matches() -> bool:
     """Whether this host's numpy writes the pinned checkpoint's bytes
     (:data:`NPZ_PIN`), twice alike."""
-    import hashlib
-
-    from crdt_tpu_torch import CrdtConfig, OrswotBatch, Universe
-    from crdt_tpu_torch.utils import checkpoint
-    from crdt_tpu_torch.utils.testdata import random_orswot_arrays
 
     uni = Universe.identity(CrdtConfig(num_actors=8, member_capacity=4, deferred_capacity=2,
                                        counter_bits=32))
@@ -3768,7 +3361,6 @@ def npz_pin_matches() -> bool:
 def read_back(batch, writes, what: str) -> int:
     """Every ``(objects, members)`` write reads as a member of ``batch``
     through ``serve.gather``; returns the reads."""
-    from crdt_tpu_torch.serve import gather
 
     n = 0
     for obj, mem in writes:
@@ -3790,40 +3382,28 @@ def schedule(fleet):
         m.scheduler(fleet, fanout=1)
 
 
-def durable_phase(dev, card: str, start):
+def durable_phase(dev, start):
     """Phase 14: a durable node on the card takes fsync'd WAL writes,
     checkpoints the 1.25M-object replica at round end, is killed in the
     middle of a fold, is restored from its snapshot and WAL onto the card
     and rejoins its peer by delta sync.  Returns the merge kernel's
     launches on the phase's path (the sessions' applies and audits)."""
-    import resource
-    import shutil
 
-    import torch
-
-    from crdt_tpu_torch import OrswotBatch, StabilityTracker, _build
-    from crdt_tpu_torch.cluster import CrashPlan, InjectedCrash, arm_crashes, disarm_crashes
-    from crdt_tpu_torch.durable import Durability, WalWriter, recover
-    from crdt_tpu_torch.oplog import derive_add_ctx, encode_ops_frame
-
-    t_phase = time.perf_counter()
-    rng = np.random.RandomState(SEED + 14)
+    t_phase = now()
+    rng = seeded(14)
     k = GOSSIP_WRITES // GOSSIP_NODES
-    replica_bytes = nbytes([getattr(start, f) for f in PLANES])
+    replica_bytes = nbytes(tree_leaves(start))
     shutil.rmtree(DURABLE_DIR, ignore_errors=True)
     free, avail = durable_room()
-    rep = {"card": card, "objects": N_TOTAL, "shape": [A, M, D], "replica_bytes": replica_bytes,
+    rep = {"objects": N_TOTAL, "shape": [A, M, D], "replica_bytes": replica_bytes,
            "fleet": "phase 12's replica P and a copy", "writes_per_batch": k,
            "durability": {"interval_rounds": 1, "retain": 2, "fsync": True},
            "disk_free_bytes": free, "host_available_bytes": avail,
            "numpy": np.__version__, "npz_bytes_match_pin": npz_pin_matches()}
-    log(f"  durable directory {DURABLE_DIR}: {free / 1e9:.2f} GB free; host memory available "
-        f"{avail / 1e9:.2f} GB; one generation needs ~{replica_bytes / 1e9:.2f} GB [{card}]")
     if free < 1.05 * replica_bytes:
         raise AssertionError(f"the durable directory's filesystem has {free} bytes free, less "
                              f"than one generation ({replica_bytes} bytes of planes); host "
                              f"memory available {avail} bytes")
-    torch.cuda.reset_peak_memory_stats()
     uni = star_universe()
     wobj = read_traffic(rng)[2]
     fleet, kept, acked, rounds, write_s = [], [[], []], [[], []], [], [[], []]
@@ -3838,7 +3418,6 @@ def durable_phase(dev, card: str, start):
 
     def run_round(r, what):
         x = gossip_round(fleet, r)
-        log(f"  {what} round {r}: {x['wall_s']:.3f} s [{card}]")
         if x["failed"]:
             raise AssertionError(f"{what} round {r}: failed session legs {x['failed']}")
         return x
@@ -3846,16 +3425,16 @@ def durable_phase(dev, card: str, start):
     with K2Launches() as k2:
         try:
             fleet.append(GossipMember(0, start, uni))
-            copy = OrswotBatch(*(getattr(start, f).clone() for f in PLANES))
+            copy = tree_map(torch.clone, start)
             del start
             fleet.append(GossipMember(1, copy, uni, durability=Durability(
                 DURABLE_DIR, interval_rounds=1, retain=2, fsync=True)))
             del copy
             schedule(fleet)
-            torch.cuda.synchronize()
-            rep["build_s"] = time.perf_counter() - t_phase
+            sync()
+            rep["build_s"] = now() - t_phase
             _build.reset_launch_counts()
-            t_path = time.perf_counter()
+            t_path = now()
             # 1. writes on both nodes, n1's WAL-appended before the fold
             writes(fleet[0])
             writes(fleet[1])
@@ -3869,11 +3448,11 @@ def durable_phase(dev, card: str, start):
             snap = fleet[1].node.last_snapshot
             if snap is None or snap.generation != 1:
                 raise AssertionError(f"n1 wrote no generation 1 at round end: {snap}")
-            ck_digests, ck_root = snap.digests, snap.root
+            ck_digests = snap.digests
             rep["checkpoint"] = {"generation": snap.generation, "wal_seq": snap.wal_seq,
                                  "bytes": snap.nbytes, "split_s": dict(snap.split_s),
                                  "wall_s": sum(snap.split_s.values())}
-            k2_round1 = _build.launch_counts()["orswot_merge"]
+            k2_round1 = k2_count()
             # 3. more writes on n1: WAL frames above generation 1's sequence
             writes(fleet[1])
             # 4. the kill: n1 dies in its fold, after the WAL append
@@ -3900,25 +3479,23 @@ def durable_phase(dev, card: str, start):
             # 5. the kill drops every reference to n1: its scheduler, its
             # listener and its node, with no cyclic collection
             k2.check("phase 14's checkpoint round")
-            torch.cuda.synchronize()
+            sync()
             before = torch.cuda.memory_allocated()
             fleet[1].close()
             fleet[1].sched = None
             fleet[1] = None
             freed = before - torch.cuda.memory_allocated()
             rep["kill_freed_bytes"] = freed
-            log(f"  n1 killed in its fold after {rep['wal']['wal_frames']} WAL frames; device "
-                f"memory fell {freed / 1e9:.3f} GB (one replica {replica_bytes / 1e9:.3f} GB)")
             if freed < replica_bytes:
                 raise AssertionError(f"dropping n1 freed {freed} bytes of device memory, less "
                                      f"than its replica's {replica_bytes}: a reference survives")
             # 6. n0 writes while n1 is down
             writes(fleet[0])
             # 7. restore from the snapshot and the WAL onto the card
-            t0 = time.perf_counter()
+            t0 = now()
             rec = recover(DURABLE_DIR, device="cuda")
-            torch.cuda.synchronize()
-            rep["restore"] = {"wall_s": time.perf_counter() - t0, "split_s": dict(rec.split_s),
+            sync()
+            rep["restore"] = {"wall_s": now() - t0, "split_s": dict(rec.split_s),
                               "report": dataclasses.asdict(rec.report)}
             if rec.report.generation != 1 or not np.array_equal(rec.snapshot_digests,
                                                                  ck_digests):
@@ -3948,9 +3525,9 @@ def durable_phase(dev, card: str, start):
                 rounds.append(x)
                 if x["digests_equal"]:
                     break
-            torch.cuda.synchronize()
-            rep["path_s"] = time.perf_counter() - t_path
-            launches = _build.launch_counts()["orswot_merge"]
+            sync()
+            rep["path_s"] = now() - t_path
+            launches = k2_count()
             if not rounds[-1]["digests_equal"]:
                 raise AssertionError(f"no convergence in {len(rounds)} rounds")
             if launches - k2_round1 == 0:
@@ -3993,19 +3570,10 @@ def durable_phase(dev, card: str, start):
                     m.close()
             shutil.rmtree(DURABLE_DIR, ignore_errors=True)
 
-    rep.update(peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-               peak_host_rss_gb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6,
+    rep.update(peak_host_rss_gb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6,
                rounds=[{"phase": x["phase"], "round": x["round"], "wall_s": x["wall_s"],
-                        "diverged": x["diverged"]} for x in rounds],
-               phase_s=time.perf_counter() - t_phase)
-    c, s_ = rep["checkpoint"], rep["restore"]
-    log(f"  checkpoint: generation 1 in {c['wall_s']:.3f} s; restore {s_['wall_s']:.3f} s, every "
-        f"WAL'd op replayed [{card}]")
-    log(f"  rejoin: {rep['rejoin']['rounds']} rounds; every merge-kernel launch equal to "
-        f"merge_reference; phase 14 {rep['phase_s']:.1f} s [{card}]")
-    print("durable " + json.dumps(rep, default=lambda x: x.tolist() if hasattr(x, "tolist")
-                                  else str(x)), flush=True)
-    return rep["k2_launches"]
+                        "diverged": x["diverged"]} for x in rounds])
+    return rep["k2_launches"], rep
 
 
 # -- phase 15 ------------------------------------------------------------------
@@ -4013,28 +3581,17 @@ def durable_phase(dev, card: str, start):
 AE_MAX_ROUNDS, AE_CPU_N, NCCL_SMALL_N = 3, 512, 4096
 
 
-def collectives_phase(dev, card: str):
+def collectives_phase(dev):
     """Phase 15: ``anti_entropy`` over the north-star fleet's 20 chunks
     (the pairwise fold, then self-merges: every merge the merge kernel),
     chunk 0 held against the fold kernel's plunger fold and the CPU, its
     fold and one self-merge timed alone; then each collective join over
     NCCL at world size one.  Returns each kernel's launches on the
     phase's path."""
-    import tempfile
 
-    import torch
-    import torch.distributed as dist
-
-    from crdt_tpu_torch import OrswotBatch, _build
-    from crdt_tpu_torch.ops import orswot_ops
-    from crdt_tpu_torch.parallel import anti_entropy, initialize
-
-    t_phase = time.perf_counter()
-    rng = np.random.RandomState(SEED + 15)
-    rep = {"card": card, "objects": N_TOTAL, "chunk": CHUNK, "shape": [A, M, D, R],
+    rng = seeded(15)
+    rep = {"objects": N_TOTAL, "chunk": CHUNK, "shape": [A, M, D, R],
            "max_rounds": AE_MAX_ROUNDS, "rounds": [], "ms": [], "wall_ms": []}
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launch_counts()
     with K2Launches() as k2:
         for c in range(N_TOTAL // CHUNK):
             planes = star_planes(rng, dev)
@@ -4045,7 +3602,7 @@ def collectives_phase(dev, card: str):
             rep["rounds"].append(rounds)
             k2.check(f"phase 15 chunk {c}")
             if c == 0:
-                first = (planes, planes_of(merged), rounds)
+                first = (planes, tree_leaves(merged), rounds)
             del planes, merged
         launches = _build.launch_counts()
         if not launches["orswot_merge"] or launches["orswot_fold_aligned"] + launches[
@@ -4067,7 +3624,7 @@ def collectives_phase(dev, card: str):
             x[:, :AE_CPU_N].cpu() for x in planes)), AE_MAX_ROUNDS)
         for what, x, y in (
                 (f"fold_merge(plunger=True) + self-merges, {ref_rounds} rounds", want, ref_rounds),
-                (f"the CPU on its first {AE_CPU_N} objects", planes_of(cpu), rounds)):
+                (f"the CPU on its first {AE_CPU_N} objects", tree_leaves(cpu), rounds)):
             if max_abs_err(x, [p[:x[0].shape[0]].to(x[0].device) for p in got]) or y != rounds:
                 raise AssertionError(f"chunk 0: anti_entropy ({rounds} rounds) != {what}")
         k2.check("phase 15 chunk 0 cross-checks")
@@ -4077,8 +3634,6 @@ def collectives_phase(dev, card: str):
     rep["fold_ms"] = cuda_ms(lambda: orswot_ops.fold_merge_sequential(*planes, M, D,
                                                                       plunger=False), 5)
     rep["self_merge_ms"] = cuda_ms(lambda: orswot_ops.merge(*fold[:5], *fold[:5], M, D), 5)
-    log(f"  anti_entropy: rounds {sorted(set(rep['rounds']))}; chunk 0 == fold_merge(plunger="
-        f"True) + self-merges == the CPU [{card}]")
 
     with tempfile.TemporaryDirectory() as tmp:
         initialize(num_processes=1, process_id=0, store=dist.FileStore(f"{tmp}/store", 1))
@@ -4086,15 +3641,8 @@ def collectives_phase(dev, card: str):
             rep["nccl_ms"] = nccl_joins(dev, planes, got)
         finally:
             dist.destroy_process_group()
-    rep.update(launches=launches, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-               phase_s=time.perf_counter() - t_phase)
-    log(f"  NCCL at world size 1: every join equal to the local state [{card}]")
-    print("collectives " + json.dumps(rep), flush=True)
-    return launches
-
-
-def planes_of(batch) -> list:
-    return [getattr(batch, f) for f in PLANES]
+    rep["launches"] = launches
+    return None, rep, launches
 
 
 def nccl_joins(dev, planes, merged) -> dict:
@@ -4102,24 +3650,12 @@ def nccl_joins(dev, planes, merged) -> dict:
     rank's state back, and a CPU tensor must not reach the NCCL group.
     Returns each join's device ms, first call (the group's NCCL set-up)
     and second."""
-    import torch
-    import torch.distributed as dist
-
-    from crdt_tpu_torch import CrdtConfig, MapBatch, MVRegKernel, OrswotBatch, Universe
-    from crdt_tpu_torch.batch import GSetBatch, LWWRegBatch, MVRegBatch
-    from crdt_tpu_torch.obs.fleet import FleetObservatory
-    from crdt_tpu_torch.parallel import (
-        all_reduce_clock_join, allgather_join_gset, allgather_join_lww, allgather_join_map,
-        allgather_join_mvreg, allgather_join_orswot, make_mesh, make_multihost_mesh,
-    )
-    from crdt_tpu_torch.parallel.collective import allgather_fleet_snapshots
-    from crdt_tpu_torch.parallel.mesh import tree_leaves
 
     mesh = make_mesh({"replicas": 1}, device="cuda")
     hybrid = make_multihost_mesh({"replicas": 1}, {"objects": 1}, device="cuda")
     if str(dist.get_backend(mesh.get_group("replicas"))) != "nccl":
         raise AssertionError("the CUDA mesh's group is not NCCL")
-    rng, n = np.random.RandomState(SEED + 16), NCCL_SMALL_N
+    rng, n = seeded(16), NCCL_SMALL_N
     uni = Universe(CrdtConfig.gpu_default(num_actors=A))
     orswot = OrswotBatch(*(x[None] for x in merged))
     lww = LWWRegBatch.from_numpy(rng.randint(0, 9, n), rng.randint(1, 99, n), device=dev)
@@ -4151,131 +3687,248 @@ def nccl_joins(dev, planes, merged) -> dict:
     return ms
 
 
+# -- phase 16 ------------------------------------------------------------------
+
+# the mesh-sharded fleet, at world size one over NCCL: the north-star fleet
+# (A=64, M=16, D=2, u32) laid out in MESH_S shards by the placement planner
+# over a Zipf 1.1 history of MESH_WRITES writes, its heat binned at
+# MESH_SPAN (the digest tree's span three levels over the leaves: at 1.25M
+# objects the level below the root spans 2^20 rows, a granule that would
+# pad the fleet 6.4-fold); member sharding at MESH_MS_N objects of logical
+# M=64 over 4 member shards of M=16; fleet snapshots of the first
+# MESH_SNAP_N objects (a cut by depth: the whole fleet's 6.17 GB take ~22 s
+# each way, phase 14)
+MESH_S, MESH_SPAN, MESH_WRITES = 8, 4096, 4096
+MESH_MS_N, MESH_MS_M, MESH_MS_SHARDS, MESH_SNAP_N = 62_500, 64, 4, 250_000
+
+
+def member_fleets(rng):
+    """Two replicas of ``MESH_MS_N`` sets of up to ``MESH_MS_M`` members
+    (``anti_entropy_fleets``, deferred removes on the first) whose members
+    are renamed ``row * MESH_MS_M + rank in the row's union``: each member
+    shard then owns at most ``MESH_MS_M / MESH_MS_SHARDS`` of a row."""
+
+    reps = anti_entropy_fleets(rng, MESH_MS_N, A, MESH_MS_M, D, 2, base=MESH_MS_M - 8, novel=4,
+                               deferred_frac=DEFERRED_FRAC)
+    row = np.arange(MESH_MS_N, dtype=np.int64)[:, None] << 32
+    ids = [r[1] for r in reps] + [reps[0][3]]
+    keys = [np.where(x >= 0, row + x, -1) for x in ids]
+    uniq = np.unique(np.concatenate([k[k >= 0] for k in keys]))
+    first = np.searchsorted(uniq, row[:, 0])
+    for rep, x, k in zip((reps[0], reps[1], reps[0]), (1, 1, 3), keys):
+        rank = np.searchsorted(uniq, k) - first[:, None]
+        rep[x][...] = np.where(k >= 0, (row >> 32) * MESH_MS_M + rank, -1)
+    return reps
+
+
+def mesh_phase(dev):
+    """Phase 16: the mesh-sharded fleet at world size one over NCCL.
+    Returns the merge kernel's launches on the phase's path (the step, the
+    repairs and the member-sharded merge)."""
+
+    uni, rng = star_universe(), seeded(160)
+    rep = {"objects": N_TOTAL, "shape": [A, M, D], "shards": MESH_S}
+    tmp = tempfile.mkdtemp()
+    initialize(num_processes=1, process_id=0, store=dist.FileStore(f"{tmp}/store", 1))
+    try:
+        with K2Launches() as k2:
+            # 1. the layout: the planner prices granules against the history's heat
+            writes = WorkloadGen(N_TOTAL, seed=SEED + 161, zipf_s=1.1).draw(MESH_WRITES)
+            heat = HeatTracker(device=dev)
+            heat.record_writes(writes, N_TOTAL)
+            fine = np.bincount(writes // MESH_SPAN, minlength=-(-N_TOTAL // MESH_SPAN))
+            span = heat.snapshot()["layout"]["span"]
+            if heat.heat_vector().tolist() != np.add.reduceat(fine, np.arange(
+                    0, fine.size, span // MESH_SPAN)).tolist():
+                raise AssertionError("the heat tracker's subtree totals != the history's")
+            p = OrswotBatch(*(x[0] for x in star_planes(rng, dev, N_TOTAL, 1)))
+            q, _ = diverge(p, rng, 0, 1 << 21, dev)
+            sa, sb = (mesh.ShardedBatch.shard(x, uni, shards=MESH_S, heat=fine, span=MESH_SPAN)
+                      for x in (p, q))
+            lay = sa.layout
+            rep["layout"] = {**lay.to_json(), "padding_share": 1 - lay.n / lay.padded,
+                             "loads": mesh.shard_loads(lay, fine, MESH_SPAN)}
+
+            # 2. one step against the unsharded control, K2 on both
+            before = k2_count()
+            res, rep["step_ms"], rep["step_wall_ms"] = timed_ms(
+                lambda: mesh.anti_entropy_step(sa, sb))
+            step_launches = k2_count() - before
+            control = p.merge(q)
+            if not (step_launches and np.array_equal(res.digests, digest_of(control, uni))
+                    and np.array_equal(res.version_vector, version_vector(control))
+                    and res.live_members == int((control.ids != EMPTY).sum())):
+                raise AssertionError("the mesh step != the unsharded K2 control")
+            k2.check("the step and its control")
+            del sa, sb, res, control
+
+            # 3. one shard diverged: its rows repaired alone, beside sync_pair
+            lo, hi = lay.ranges()[3]
+            q, rows = diverge(p, rng, 2, 1 << 22, dev, lo, hi)
+            n0, n1 = ClusterNode("m0", p, uni), ClusterNode("m1", q, uni)
+            st, _, rep["subset_sync_ms"] = timed_ms(lambda: n0.sync_shard_subset(n1, lay))
+            if (st.shards_synced, st.shards_skipped, st.objects) != (1, MESH_S - 1, rows.size) \
+                    or not np.array_equal(digest_of(n0.batch, uni), digest_of(q, uni)):
+                raise AssertionError(f"the shard-subset sync: {st}")
+            rep["sync_pair_ms"] = timed_ms(lambda: sync_pair(SyncSession(p, uni, peer="m1"),
+                                                             SyncSession(q, uni, peer="m0")))[2]
+            rep["subset_sync"] = {**dataclasses.asdict(st), "object_ids": None}
+            k2.check("the repairs")
+            del n0, n1, p, q
+
+            # 4. member sharding: logical M=64 over 4 member shards of M=16;
+            # the merge, an add on every set, the clock rebroadcast, then a
+            # self-merge (the add can make a deferred remove of another shard due)
+            mesh_m = make_mesh({"members": 1}, device=dev)
+            reps = member_fleets(rng)
+            sa, sb = (tuple(tree_leaves(OrswotBatch.from_numpy(*partition_dense(
+                *r, MESH_MS_SHARDS, MESH_MS_M // MESH_MS_SHARDS, D), device=dev))) for r in reps)
+            actor = torch.from_numpy(rng.randint(0, A, MESH_MS_N).astype(np.int32)).to(dev)
+            member = torch.arange(MESH_MS_N, dtype=torch.int32, device=dev) * MESH_MS_M + 63
+            counter = torch.from_numpy(bias_np(np.full(MESH_MS_N, 1000, np.uint32))).to(dev)
+            got, rep["member_merge_ms"], _ = timed_ms(lambda: member_sharded_merge(sa, sb, mesh_m))
+            got = rebroadcast_clock(sharded_apply_add(got, actor, counter, member, mesh_m), mesh_m)
+            got = member_sharded_merge(got, got, mesh_m)
+            k2.check("the member-sharded merges")
+            step = K2_CHECK_CELLS // (MESH_MS_M * 2 * MESH_MS_M * A)
+
+            def plain(x, y):  # the unsharded plain merge, in set chunks
+                return [torch.cat(z) for z in zip(*(tile.merge_reference(
+                    *(p[s:s + step] for p in (*x, *y)), MESH_MS_M, D)[:5]
+                    for s in range(0, MESH_MS_N, step)))]
+            dense = [tree_leaves(OrswotBatch.from_numpy(*r, device=dev)) for r in reps]
+            want = orswot_ops.apply_add(*plain(*dense[:2]), actor, counter, member)[:5]
+            want = OrswotBatch(*plain(want, want))
+            back = OrswotBatch.from_numpy(*unpartition_dense(*OrswotBatch(*got).to_numpy(),
+                                                             m_cap=MESH_MS_M, d_cap=D), device=dev)
+            if not (np.array_equal(digest_of(back, uni), digest_of(want, uni)) and torch.equal(
+                    back.ids.sort(-1).values, want.ids.sort(-1).values)
+                    and torch.equal(back.clock, want.clock)):
+                raise AssertionError("the member-sharded merge != the unsharded plain merge")
+            del sa, sb, got, dense, want, back
+
+            # 5. fleet snapshots of the first MESH_SNAP_N objects, S shards
+            part = OrswotBatch(*(x[0] for x in star_planes(rng, dev, MESH_SNAP_N, 1)))
+            shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+            store = mesh.MeshSnapshotStore(DURABLE_DIR, mesh.choose_layout(
+                MESH_SNAP_N, MESH_S, span=MESH_SPAN))
+            manifest, _, write_ms = timed_ms(lambda: store.write_fleet(part, uni, node_id="m0"))
+            (back, _), _, rep["snapshot_load_ms"] = timed_ms(lambda: store.load_fleet(uni, dev))
+            rep["snapshot_write_ms"] = write_ms
+            digests = digest_of(part, uni)
+            if not (np.array_equal(digest_of(back, uni), digests) and manifest["roots"]
+                    == mesh.shard_roots(digests, store.layout, dev).tolist()):
+                raise AssertionError("the restored fleet's digests != the written fleet's")
+            shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+            launches = k2_count()
+            if launches != len(k2.checked):
+                raise AssertionError(f"{launches} merge-kernel launches, {len(k2.checked)} checked")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rep.update(counts=mesh.mesh_counts(), k2_launches=launches)
+    return launches, rep
+
+
 def main() -> int:
-    import threading
-
-    import torch
-
     # a native fault or abort prints every thread's Python stack first
     faulthandler.enable()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
-    try:
-        from crdt_tpu_torch import _build
-    except ImportError as e:
-        print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
-        return 2
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("== phase 1: environment")
+    log("== phases 1 and 2: environment and build")
     card = card_line()
     log(f"  card: {card}")
-    log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"python {sys.version.split()[0]}")
-    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True,
-                          check=True, timeout=60).stdout.strip().splitlines()[-1]
-    log(f"  nvcc: {nvcc}")
-    free, avail = durable_room()
-    log(f"  disk free under {DURABLE_DIR}: {free / 1e9:.2f} GB; host memory available "
-        f"{avail / 1e9:.2f} GB")
-
-    log("== phase 2: build")
-    t0 = time.perf_counter()
+    t0 = now()
     secs = _build.build_all()
-    log(f"  built {sorted(secs)} in {time.perf_counter() - t0:.1f} s (per source: "
-        + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()) + ")")
-    for name, info in _build.BUILD_LOG.items():
-        entry = ""
-        for line in info["ptxas"].splitlines():
-            m = re.search(r"Compiling entry function '\S*?(orswot_\w*?kernel)(I.*?E)?E", line)
-            if m:  # the kernel, and its instantiation's template arguments, e.g. <16,2>
-                targs = re.findall(r"Li(\d+)E", m.group(2) or "")
-                entry = (f"<{','.join(targs)}>" if targs else "") + (
-                    " direct" if "direct" in m.group(1) else "")
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas[{name}{entry}]: {line.strip()}")
+    print("environment " + json.dumps({
+        "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+        "python": sys.version.split()[0], "nvcc": subprocess.run(
+            [_build._nvcc(), "--version"], capture_output=True, text=True, check=True,
+            timeout=60).stdout.strip().splitlines()[-1],
+        "disk_free_and_host_available_bytes": durable_room(), "build_s": now() - t0,
+        "build_s_per_source": secs,
+        # each kernel instantiation's (mangled) entry, registers and spills
+        "ptxas": {name: [ln.strip() for ln in info["ptxas"].splitlines()
+                         if re.search("entry function|registers|spill", ln)]
+                  for name, info in _build.BUILD_LOG.items()}}), flush=True)
 
     log("== phase 3: kernels vs plain versions")
     worst = check_kernels(dev)
-    timed = time_kernels(dev, star_planes(np.random.RandomState(SEED + 3), dev), worst)
+    timed = time_kernels(dev, star_planes(seeded(3), dev), worst)
     torch.cuda.empty_cache()
-    for name, err in worst.items():
-        log(f"  {name}: max abs diff {err} over every check (bit-equal, overflow flags equal)")
 
-    n_chunks = N_TOTAL // CHUNK
-    log(f"== phase 4: main path ({n_chunks} chunks of {CHUNK} objects, "
-        f"A={A} M={M} D={D} R={R})")
+    log("== phase 4: main path (the north-star fleets folded in chunks)")
     _build.reset_launch_counts()
-    fold_ms = main_path(dev, n_chunks)
+    fold_ms = main_path(dev, N_TOTAL // CHUNK)
     launches = _build.launch_counts()
     for name in REPLACES:
         if launches[name] == 0:
             raise AssertionError(f"main path never launched {name}")
-    merges = CHUNK * R
-    mean_ms = sum(fold_ms) / len(fold_ms)
-    log(f"  fold wall ms per chunk: {[round(t, 3) for t in fold_ms]}")
-    log(f"  mean fold {mean_ms:.3f} ms/chunk (first {fold_ms[0]:.3f}), "
-        f"{merges / (mean_ms / 1e3) / 1e6:.2f}M merges/s, total fold "
-        f"{sum(fold_ms):.1f} ms for {n_chunks * CHUNK} objects; launches {launches} "
-        f"[{card}]")
+    print("main_path " + json.dumps({"card": card, "fold_wall_ms": fold_ms,
+                                     "launches": launches}), flush=True)
 
     log("== phase 5: regrow ladder")
     _build.reset_launch_counts()
     stats = regrow_ladder(dev)
-    log(f"  overflow_regrows={stats.overflow_regrows} "
-        f"final_member_capacity={stats.final_member_capacity} "
-        f"joins={stats.joins} launches {_build.launch_counts()}")
     if (stats.overflow_regrows, stats.final_member_capacity) != (2, 8):
         raise AssertionError(f"unexpected regrow ladder: {stats}")
 
     k2 = {}  # the merge kernel's launches on each phase's path, by table key
 
     def run(key, title, fn, *args):
-        """One phase: counts reset before it, its time and launches after;
-        ``key`` names the merge kernel's launches the phase returns first,
-        which must not be 0."""
+        """One phase: counts reset before it; it returns the merge kernel's
+        launches on its path (which must not be 0 under ``key``), its report
+        and what later phases take; the report, its wall time and peak
+        device memory are printed as one JSON line named ``key``."""
         log(f"== phase {title}")
         _build.reset_launch_counts()
-        t0 = time.perf_counter()
-        out = fn(*args)
-        log(f"  phase {title.split(':')[0]} took {time.perf_counter() - t0:.1f} s; launches "
-            f"{_build.launch_counts()}")
-        if key:
-            k2[key] = out[0] if isinstance(out, tuple) else out
-            if not k2[key]:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = now()
+        launches, rep, *rest = fn(*args)
+        rep.setdefault("peak_memory_gb", torch.cuda.max_memory_allocated() / 1e9)
+        rep.update(card=card, phase_s=now() - t0, launches_after=_build.launch_counts())
+        print(f"{key} " + json.dumps(rep, default=lambda x: x.tolist() if hasattr(x, "tolist")
+                                     else str(x)), flush=True)
+        if launches is not None:
+            k2[key] = launches
+            if not launches:
                 raise AssertionError(f"phase {title} never launched the merge kernel")
         torch.cuda.empty_cache()
-        return out
+        return rest[0] if len(rest) == 1 else rest
 
-    _, chunk_blobs = run("wire", "6: wire leg (blobs -> fold on the card -> blobs; the "
-                         "union-aligned fold only as the byte oracle)", wire_leg, dev, card)
-    run(None, "6b: from_wire and to_scalar, dense planes against COO columns", wire_routes,
-        dev, card, chunk_blobs)
-    if _build.launch_counts()["orswot_merge"] == 0:
+    chunk_blobs = run("wire", "6: wire leg (blobs -> fold on the card -> blobs; the "
+                      "union-aligned fold only as the byte oracle)", wire_leg, dev)
+    run("wire_routes", "6b: from_wire and to_scalar, dense planes against COO columns",
+        wire_routes, dev, chunk_blobs)
+    if k2_count() == 0:
         raise AssertionError("phase 6b never launched the merge kernel")
     del chunk_blobs
     run("op", f"7: op path ({OP_FRAMES} frames of {OP_FRAME_OPS} ops into {N_TOTAL} objects; "
-        "the merge kernel self-merges, the op bodies are torch ops)", op_path, dev, card)
-    run(None, "8: flat types (fold, wire round and op frames on the card; torch ops)",
-        flat_types, dev, card)
-    run("map", "9: Map (merge, truncate and wire rounds on the card)", map_phase, dev, card)
-    _, fleet, diverged = run("sync", "10: sync and GC (digests, descent, two sync sessions, GC "
-                             "pass)", sync_gc_phase, dev, card)
-    _, fleet = run("read", "11: the read front-end (gathers, consistency, frontier, heat, audit, "
-                   "capacity)", read_phase, dev, card, fleet, diverged)
-    _, fleet = run("cluster", "12: cluster transport (two sessions over loopback TCP through "
-                   "the ARQ, faults injected)", cluster_phase, dev, card, fleet)
+        "the merge kernel self-merges, the op bodies are torch ops)", op_path, dev)
+    run("flat_types", "8: flat types (fold, wire round and op frames on the card; torch ops)",
+        flat_types, dev)
+    run("maps", "9: Map (merge, truncate and wire rounds on the card)", map_phase, dev)
+    fleet, diverged = run("sync_gc", "10: sync and GC (digests, descent, two sync sessions, GC "
+                          "pass)", sync_gc_phase, dev)
+    fleet = run("reads", "11: the read front-end (gathers, consistency, frontier, heat, audit, "
+                "capacity)", read_phase, dev, fleet, diverged)
+    fleet = run("cluster", "12: cluster transport (two sessions over loopback TCP through "
+                "the ARQ, faults injected)", cluster_phase, dev, fleet)
     run("gossip", "13: a gossip fleet (three cluster nodes over loopback TCP taking writes and "
-        "serving reads)", gossip_phase, dev, card, fleet)
+        "serving reads)", gossip_phase, dev, fleet)
     run("durable", "14: durability (a checkpointed node killed mid-fold, restored from its "
-        "snapshot and WAL, rejoining by delta sync)", durable_phase, dev, card, fleet)
+        "snapshot and WAL, rejoining by delta sync)", durable_phase, dev, fleet)
     del fleet
-    collective = run(None, "15: collectives (anti_entropy over the north-star fleet, the joins "
-                     "over NCCL)", collectives_phase, dev, card)
+    collective = run("collectives", "15: collectives (anti_entropy over the north-star fleet, "
+                     "the joins over NCCL)", collectives_phase, dev)
+    run("mesh", "16: the mesh-sharded fleet (layout, step, shard-subset sync, member "
+        "sharding, fleet snapshots)", mesh_phase, dev)
     log("  threads alive at the end: "
         f"{[t.name for t in threading.enumerate() if t is not threading.main_thread()]}")
 

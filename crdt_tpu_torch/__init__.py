@@ -30,7 +30,10 @@ observatories (``obs/``: :class:`StabilityTracker`, :class:`HeatTracker`,
 plane over them: each node's :class:`MetricsRegistry`, filled from its
 counts at read time, the :class:`FleetObservatory` its sessions gossip,
 and :func:`start_metrics_server` (``/metrics``, ``/events``, ``/fleet``,
-``/kernels``, ``/stability``, ``/heat``, ``/healthz``).
+``/kernels``, ``/stability``, ``/heat``, ``/healthz``); the collective
+joins over process groups (``parallel/``) and the mesh-sharded fleet
+(``mesh/``: one logical replica in S shards over the ranks of a mesh,
+its anti-entropy step, shard-subset repair and fleet snapshots).
 The scalar engine (``scalar/``) and the serde codec (``utils/serde.py``)
 are the port's own copies.  Entry points take
 ``device=`` and default to ``"cuda"``; pass ``device="cpu"`` to run the

@@ -98,7 +98,7 @@ _RESTYPES = {
     **{fn: (LL if "_ingest_" in fn else None) for fn in HOST_LIBS["wire_ingest"][1]},
 }
 
-_LIBS: dict[tuple, ctypes.CDLL] = {}
+_LIBS: dict[str, ctypes.CDLL] = {}
 _LIBS_LOCK = threading.Lock()  # the wire loop's parse thread loads the codec too
 _LAUNCHES = {name: 0 for name in KERNELS}
 _LAUNCHES_LOCK = threading.Lock()  # two sync peers launch from two threads
@@ -144,32 +144,31 @@ def _recipe(name: str):
     return _gxx, GXX_FLAGS, NATIVE / src, [], exports
 
 
-def _lib_path(name: str, extra: tuple[str, ...] = ()) -> Path:
+def _lib_path(name: str) -> Path:
     _, flags, src, headers, _ = _recipe(name)
-    h = hashlib.sha256(" ".join(flags + tuple(extra)).encode())
+    h = hashlib.sha256(" ".join(flags).encode())
     for f in headers + [src]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names=None, extra: tuple[str, ...] = ()) -> dict[str, float]:
+def build_all(names=None) -> dict[str, float]:
     """Build every library that is not built yet (by default every CUDA
     kernel and the host codec), one compiler per source, all started
-    together; ``extra`` adds compiler flags (such as a ``-D`` that
-    switches on instrumentation) and names a separate library.  Returns
-    the seconds each build took (0.0 for a library already on disk)."""
+    together.  Returns the seconds each build took (0.0 for a library
+    already on disk)."""
     names = list([*KERNELS, *HOST_LIBS] if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs, seconds = {}, {}
     for name in names:
-        out = _lib_path(name, extra)
+        out = _lib_path(name)
         if out.exists():
             seconds[name] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         compiler, flags, src, _, _ = _recipe(name)
-        cmd = [compiler(), *flags, *extra, "-o", str(tmp), str(src)]
+        cmd = [compiler(), *flags, "-o", str(tmp), str(src)]
         try:
             proc = subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -184,8 +183,7 @@ def build_all(names=None, extra: tuple[str, ...] = ()) -> dict[str, float]:
     for name, (proc, tmp, out, t0) in procs.items():
         stdout, stderr = proc.communicate()
         seconds[name] = time.perf_counter() - t0
-        BUILD_LOG[f"{name}[{' '.join(extra)}]" if extra else name] = {
-            "seconds": seconds[name], "ptxas": stderr}
+        BUILD_LOG[name] = {"seconds": seconds[name], "ptxas": stderr}
         if proc.returncode != 0:
             failed.append(f"{name}: {cmd[0]} exited {proc.returncode}\n{stdout}{stderr}")
             tmp.unlink(missing_ok=True)
@@ -196,18 +194,16 @@ def build_all(names=None, extra: tuple[str, ...] = ()) -> dict[str, float]:
     return seconds
 
 
-def library(name: str, extra: tuple[str, ...] = ()) -> ctypes.CDLL:
+def library(name: str) -> ctypes.CDLL:
     """The loaded library ``name`` (a kernel of ``KERNELS`` or a host
-    library of ``HOST_LIBS``, built with the extra compiler flags
-    ``extra``), built first if needed."""
-    key = (name, tuple(extra))
-    lib = _LIBS.get(key)
+    library of ``HOST_LIBS``), built first if needed."""
+    lib = _LIBS.get(name)
     if lib is not None:
         return lib
     with _LIBS_LOCK:
-        if key not in _LIBS:
-            build_all([name], extra)
-            lib = ctypes.CDLL(str(_lib_path(name, extra)))
+        if name not in _LIBS:
+            build_all([name])
+            lib = ctypes.CDLL(str(_lib_path(name)))
             for fn, argtypes in _recipe(name)[4].items():
                 f = getattr(lib, fn)
                 f.argtypes = argtypes
@@ -215,8 +211,8 @@ def library(name: str, extra: tuple[str, ...] = ()) -> ctypes.CDLL:
             if name in KERNELS:
                 lib.orswot_error_string.argtypes = [I]
                 lib.orswot_error_string.restype = ctypes.c_char_p
-            _LIBS[key] = lib
-        return _LIBS[key]
+            _LIBS[name] = lib
+        return _LIBS[name]
 
 
 #: the kernel observatory timing launches while it is enabled

@@ -16,11 +16,12 @@ from .gossip import (  # noqa: F401
 )
 from .membership import ALIVE, DEAD, SUSPECT, Membership, PeerInfo  # noqa: F401
 from .transport import (  # noqa: F401
-    QueuePairTransport, ResilientTransport, RetryPolicy, TcpTransport, Transport, linger,
-    queue_pair,
+    CallableTransport, QueuePairTransport, ResilientTransport, RetryPolicy, TcpTransport,
+    Transport, linger, queue_pair,
 )
 
 __all__ = [
+    "CallableTransport",
     "ALIVE", "DEAD", "SUSPECT", "ClusterNode", "CrashPlan", "CrashState", "FaultPlan",
     "FaultyTransport", "FlappingDialer", "GossipScheduler", "InjectedCrash", "LatencyTransport",
     "Membership", "PeerInfo", "QueuePairTransport", "ResilientTransport", "RetryPolicy",

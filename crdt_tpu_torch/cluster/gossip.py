@@ -470,6 +470,37 @@ class ClusterNode:
         is symmetric: the same state machine)."""
         return self._run_session(peer_id, transport)
 
+    def sync_shard_subset(self, peer: "ClusterNode", layout):
+        """Repair only the diverged shards of a sharded fleet against an
+        in-process peer (:func:`crdt_tpu_torch.mesh.sync.shard_subset_sync`
+        over ``layout``, a :class:`~crdt_tpu_torch.mesh.MeshLayout`),
+        pulling those shards' diverged rows from the peer's batch.  Both
+        busy locks are held, this node's first, each waited for at most
+        its ``busy_timeout_s`` (then :class:`PeerUnavailableError`), so
+        neither batch moves meanwhile.  The repaired rows feed this node's
+        heat tracker.  Returns the :class:`~crdt_tpu_torch.mesh.
+        ShardSyncStats`."""
+        from ..mesh.sync import shard_subset_sync
+
+        held = []
+        try:
+            for node, other in ((self, peer), (peer, self)):
+                if not node._busy.acquire(timeout=node.busy_timeout_s):
+                    raise PeerUnavailableError(
+                        f"node {node.node_id}: busy with another session for "
+                        f">{node.busy_timeout_s:.1f}s, refusing shard-subset sync with "
+                        f"{other.node_id}")
+                held.append(node._busy)
+            merged, stats = shard_subset_sync(self.batch, peer.batch, layout, self.universe)
+            with self._lock:
+                self._batch = merged
+            if stats.objects and self.heat is not None:
+                self.heat.record_repair(stats.object_ids, layout.n)
+            return stats
+        finally:
+            for lock in reversed(held):
+                lock.release()
+
 
 @dataclasses.dataclass
 class RoundReport:

@@ -70,6 +70,22 @@ class Transport:
         self.close()
 
 
+class CallableTransport(Transport):
+    """A ``(send, recv)`` callable pair as a :class:`Transport`.  The
+    callables know no deadline, so ``recv``'s ``timeout`` is advisory:
+    the callable blocks as it always did."""
+
+    def __init__(self, send: Callable[[bytes], None], recv: Callable[[], bytes]):
+        self._send = send
+        self._recv = recv
+
+    def send(self, frame: bytes) -> None:
+        self._send(frame)
+
+    def recv(self, timeout: Optional[float] = None) -> bytes:
+        return self._recv()
+
+
 class QueuePairTransport(Transport):
     """One endpoint of an in-process frame channel over two queues;
     ``close`` pushes a sentinel so the peer's ``recv`` raises

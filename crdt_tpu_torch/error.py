@@ -95,6 +95,19 @@ class TransportFrameError(TransportError):
     mismatch, unknown kind.  The receiver treats it as loss."""
 
 
+class MeshContractError(CrdtError, TypeError):
+    """A kernel was dispatched onto an object mesh its sharding contract
+    forbids: a ``host_only`` or ``replicated`` kernel, a mesh size outside
+    the contract's ladder, or a kernel with no contract row
+    (:mod:`crdt_tpu_torch.mesh.contracts`).  A ``TypeError``: the caller
+    passed a kernel of the wrong kind for the mesh."""
+
+    def __init__(self, message: str, *, kernel: str = "", sclass: str = ""):
+        super().__init__(message)
+        self.kernel = kernel
+        self.sclass = sclass
+
+
 class ConsistencyUnavailableError(CrdtError):
     """A session-consistency admission could not be satisfied: a
     read-your-writes or monotonic read parked past its deadline without

@@ -187,6 +187,20 @@ def mesh_bounds(n: int, shards: int, granule: int | None = None) -> list:
     return [min(s * per, int(n)) for s in range(int(shards) + 1)]
 
 
+def mesh_loads(heat, span: int, n: int, bounds) -> np.ndarray:
+    """Per-subtree heat attributed to each shard of ``bounds``, spread
+    evenly within each subtree of ``span`` objects (of ``n``)."""
+    heat = np.asarray(heat, dtype=np.float64)
+    loads = np.zeros(len(bounds) - 1, dtype=np.float64)
+    for i in range(heat.size):
+        lo, hi = i * span, min((i + 1) * span, n)
+        for s in range(loads.size):
+            ov = min(hi, bounds[s + 1]) - max(lo, bounds[s])
+            if ov > 0:
+                loads[s] += heat[i] * ov / max(hi - lo, 1)
+    return loads
+
+
 def score_plan(spec: str, heat, *, n: int, span: int, granule: int | None = None) -> dict:
     """Score one placement spec against a per-subtree heat vector: mesh
     plans by per-shard load and ``imbalance``, ring plans by per-owner
@@ -203,14 +217,7 @@ def score_plan(spec: str, heat, *, n: int, span: int, granule: int | None = None
     if kind == "mesh":
         shards = params["shards"]
         bounds = mesh_bounds(n, shards, granule)
-        loads = np.zeros(shards, dtype=np.float64)
-        for i in range(subtrees):
-            lo, hi = i * span, min((i + 1) * span, n)
-            width = max(hi - lo, 1)
-            for s in range(shards):
-                ov = min(hi, bounds[s + 1]) - max(lo, bounds[s])
-                if ov > 0:
-                    loads[s] += heat[i] * ov / width
+        loads = mesh_loads(heat, span, n, bounds)
         out.update(shards=shards, loads=[round(float(v), 3) for v in loads],
                    max_load=round(float(np.max(loads)) if shards else 0.0, 3),
                    mean_load=round(float(np.mean(loads)) if shards else 0.0, 3),

@@ -160,6 +160,23 @@ TABLE: Dict[str, tuple] = {
     "fleet.snapshot_bytes": ("obs.fleet.snapshot_bytes", H),
     "events.dropped": ("obs.events.dropped", G),
     "profiler.unavailable": ("obs.profiler_unavailable", C),
+    # the mesh layer: ShardedBatch.publish_gauges and mesh_counts()
+    "mesh.shards": ("mesh.layout.shards", G),
+    "mesh.granule": ("mesh.layout.granule", G),
+    "mesh.imbalance": ("mesh.layout.imbalance", G),
+    "mesh.objects": ("mesh.shard.{}.objects", G),
+    "mesh.load": ("mesh.shard.{}.load", G),
+    "mesh.step_rounds": ("mesh.step.rounds", C),
+    "mesh.step_digest_bytes": ("mesh.step.digest_bytes", C),
+    "mesh.sync_rounds": ("mesh.sync.rounds", C),
+    "mesh.sync_shards_synced": ("mesh.sync.shards_synced", C),
+    "mesh.sync_shards_skipped": ("mesh.sync.shards_skipped", C),
+    "mesh.sync_objects": ("mesh.sync.objects", C),
+    "mesh.sync_delta_bytes": ("mesh.sync.delta_bytes", C),
+    "mesh.durable_snapshots": ("mesh.durable.snapshots", C),
+    "mesh.durable_restores": ("mesh.durable.restores", C),
+    "mesh.durable_rejected": ("mesh.durable.rejected.{}", C),
+    "mesh.contract_refused": ("mesh.contract.refused", C),
 }
 
 #: the capacity plane fields published per label (``capacity.<label>.<field>``)
@@ -418,13 +435,36 @@ def publish_observatory(reg, observatory) -> None:
         put(reg, "fleet.snapshot_bytes", c["snapshot_bytes"])
 
 
+def publish_layout(reg, layout, loads=None) -> None:
+    """A mesh layout's gauges, and each shard's load when given."""
+    put(reg, "mesh.shards", layout.shards)
+    put(reg, "mesh.granule", layout.granule)
+    put(reg, "mesh.imbalance", layout.imbalance)
+    for s, (lo, hi) in enumerate(layout.ranges()):
+        put(reg, "mesh.objects", hi - lo, s)
+        if loads is not None:
+            put(reg, "mesh.load", float(loads[s]), s)
+
+
+def publish_mesh(reg) -> None:
+    """The mesh layer's process-wide counts that are not zero."""
+    from ..mesh.state import mesh_counts
+
+    for k, v in mesh_counts().items():
+        if k.startswith("durable_rejected_"):
+            put(reg, "mesh.durable_rejected", v, k[len("durable_rejected_"):])
+        elif v:
+            put(reg, "mesh." + k, v)
+
+
 def process_source(reg) -> None:
-    """What every registry of the process carries: the kernel observatory
-    and the flight recorder's evictions."""
+    """What every registry of the process carries: the kernel observatory,
+    the mesh layer's counts and the flight recorder's evictions."""
     from ..utils import tracing
     from . import events, kernels
 
     kernels.kernel_observatory().publish(reg)
+    publish_mesh(reg)
     put(reg, "events.dropped", events.recorder().dropped)
     if tracing.unavailable_count():
         put(reg, "profiler.unavailable", tracing.unavailable_count())

@@ -8,7 +8,9 @@ all-reduce with merge as the combiner: ``all_reduce(MAX)`` for the
 clock-shaped types, an all-gather and a fold in canonical order for
 ORSWOT state (whose reference merge is order-sensitive; see
 :mod:`.collective`).  Objects shard over a mesh's ``objects`` dim;
-replicas reduce over its ``replicas`` dim, one rank per replica.
+replicas reduce over its ``replicas`` dim, one rank per replica; a set
+too big for one member table shards over a ``members`` dim
+(:mod:`.member_sharding`).
 """
 
 from .collective import (
@@ -25,6 +27,10 @@ from .collective import (
     tree_reduce_merge,
 )
 from .executor import JoinError, JoinExecutor, JoinStats, join_all
+from .member_sharding import (
+    member_sharded_merge, partition_dense, rebroadcast_clock, sharded_apply_add,
+    unpartition_dense,
+)
 from .mesh import make_mesh, replicate, shard_batch
 from .multihost import (
     global_batch_from_local,
@@ -57,4 +63,9 @@ __all__ = [
     "make_multihost_mesh",
     "global_batch_from_local",
     "local_shard",
+    "member_sharded_merge",
+    "partition_dense",
+    "rebroadcast_clock",
+    "sharded_apply_add",
+    "unpartition_dense",
 ]

@@ -239,6 +239,13 @@ def _host_u64(t: torch.Tensor) -> np.ndarray:
 def orswot_digest(clock, ids, dots, d_ids, d_clocks, universe=None) -> np.ndarray:
     """``uint64[N]`` fingerprints of N ORSWOT states from their biased
     planes, computed where the planes live in row chunks."""
+    return _host_u64(orswot_digest_rows(clock, ids, dots, d_ids, d_clocks, universe))
+
+
+def orswot_digest_rows(clock, ids, dots, d_ids, d_clocks, universe=None) -> torch.Tensor:
+    """The fingerprints of :func:`orswot_digest` as an int64 tensor (the
+    u64 bits) where the planes live: the per-row body the mesh step
+    digests each rank's rows with before it gathers them."""
     dev = clock.device
     asalts = _salts_tensor(actor_salt_table(universe, num_actors=clock.shape[-1]), dev)
     mt = member_salt_table(universe)
@@ -250,7 +257,7 @@ def orswot_digest(clock, ids, dots, d_ids, d_clocks, universe=None) -> np.ndarra
     for s in range(0, n, step):
         out[s:s + step] = _orswot_rows(*(p[s:s + step] for p in (clock, ids, dots, d_ids,
                                                                   d_clocks)), asalts, mtable)
-    return _host_u64(out)
+    return out
 
 
 def _counter_cell_salts(universe, tail_shape, num_actors: int) -> np.ndarray:

@@ -1,1 +1,1 @@
-"""Measurement scripts for the port's kernels; each runs on a CUDA card."""
+"""Command-line tools of the port: the gloo multihost join (``multihost``)."""

@@ -1126,3 +1126,34 @@ def test_anti_entropy_on_the_card_equals_the_cpu(dev, impl):
     # the fold's R - 1 merges and a self-merge per later round, all pairwise
     assert launches["orswot_merge"] >= 7 + rounds - 1
     assert launches["orswot_fold_aligned"] == launches["orswot_fold"] == 0
+
+
+def test_mesh_step_and_member_sharding_over_nccl_equal_the_cpu(dev, nccl_world):
+    """At world size one over NCCL: ``anti_entropy_step`` over 8 shards
+    and ``member_sharded_merge`` over 4 member shards, on the card and on
+    the CPU (the same default group's gloo dims), equal bit for bit, and
+    each launches the merge kernel."""
+    from crdt_tpu_torch import CrdtConfig, OrswotBatch, Universe, mesh
+    from crdt_tpu_torch.parallel import make_mesh, member_sharded_merge, partition_dense
+
+    uni = Universe.identity(CrdtConfig(num_actors=64, member_capacity=16, deferred_capacity=2,
+                                       counter_bits=32))
+    planes = _fleets(11, 4099, 64, 16, 2, 2, dev, deferred_frac=0.25)
+    results = {}
+    for d in ("cuda", "cpu"):
+        a, b = (OrswotBatch(*(x[r].to(d) for x in planes)) for r in range(2))
+        sa, sb = (mesh.ShardedBatch.shard(x, uni, shards=8, granule=256) for x in (a, b))
+        _build.reset_launch_counts()
+        res = mesh.anti_entropy_step(sa, sb)
+        parts = [partition_dense(*x.to_numpy(), 4, 8, 2) for x in (a, b)]
+        state = member_sharded_merge(
+            *(_planes_of(OrswotBatch.from_numpy(*p, device=d)) for p in parts),
+            make_mesh({"members": 1}, device=d))
+        results[d] = (res, state, _build.launch_counts()["orswot_merge"])
+    (got, gstate, launches), (want, wstate, cpu_launches) = results["cuda"], results["cpu"]
+    assert launches >= 2 and cpu_launches == 0
+    np.testing.assert_array_equal(got.digests, want.digests)
+    np.testing.assert_array_equal(got.version_vector, want.version_vector)
+    assert got.live_members == want.live_members
+    _equal([x.cpu() for x in _planes_of(got.batch.device)], _planes_of(want.batch.device))
+    _equal([x.cpu() for x in gstate], wstate)

@@ -65,11 +65,11 @@ def test_scan_covers_every_module():
 @pytest.mark.parametrize("entry", ["resolve_device", "from_numpy", "zeros", "build_fleet_planes",
                                    "map_zeros", "map_from_scalar", "build_tree",
                                    "heat_tracker", "device_memory", "recover", "make_mesh",
-                                   "make_multihost_mesh"])
+                                   "make_multihost_mesh", "shard_roots", "shard_root_of"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(entry, monkeypatch):
     from crdt_tpu_torch import (
         CapacityTracker, CrdtConfig, DeviceUnavailableError, HeatTracker, MapBatch, MVRegKernel,
-        OrswotBatch, Universe,
+        OrswotBatch, Universe, mesh,
     )
     from crdt_tpu_torch.device import resolve_device
     from crdt_tpu_torch.durable import recover
@@ -100,6 +100,9 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(entry, monkeypatc
         "recover": lambda: recover(REPO / "no-such-durable-dir"),
         "make_mesh": lambda: make_mesh({"replicas": 1}),
         "make_multihost_mesh": lambda: make_multihost_mesh({"replicas": 1}),
+        "shard_roots": lambda: mesh.shard_roots(np.arange(4, dtype=np.uint64),
+                                                mesh.choose_layout(4, 2)),
+        "shard_root_of": lambda: mesh.shard_root_of(np.arange(4, dtype=np.uint64)),
     }
     with pytest.raises(DeviceUnavailableError, match="cuda"):
         calls[entry]()

@@ -320,9 +320,9 @@ def test_lag_publisher_matches_jax(monkeypatch):
 
 
 #: the manifest's rows the port does not publish: the JAX package's jit
-#: and XLA telemetry, tracer spans, the wire codecs' per-blob counts, the
-#: mesh, GC, the op log, recovery, the session profile and the fault
-#: injectors (their counts stay report fields and plain counts)
+#: and XLA telemetry, tracer spans, the wire codecs' per-blob counts, GC,
+#: the op log, recovery, the session profile and the fault injectors
+#: (their counts stay report fields and plain counts)
 UNPUBLISHED = {
     ("wire.*.*.native", "counter"), ("wire.*.*.fallback", "counter"),
     ("wire.*.*.fallback_reason.*", "counter"), ("wire.sync.*.bytes", "counter"),
@@ -356,14 +356,6 @@ UNPUBLISHED = {
     ("kernel.*.cost_bytes", "gauge"), ("kernel.compiles", "counter"),
     ("kernel.budget.watermark", "gauge"), ("kernel.cost.unavailable", "counter"),
     ("devicemem.arrays", "gauge"), ("devicemem.dtype.*.bytes", "gauge"),
-    ("mesh.layout.shards", "gauge"), ("mesh.layout.granule", "gauge"),
-    ("mesh.layout.imbalance", "gauge"), ("mesh.shard.*.objects", "gauge"),
-    ("mesh.shard.*.load", "gauge"), ("mesh.step.rounds", "counter"),
-    ("mesh.step.digest_bytes", "counter"), ("mesh.sync.rounds", "counter"),
-    ("mesh.sync.shards_synced", "counter"), ("mesh.sync.shards_skipped", "counter"),
-    ("mesh.sync.delta_bytes", "counter"), ("mesh.sync.objects", "counter"),
-    ("mesh.durable.snapshots", "counter"), ("mesh.durable.restores", "counter"),
-    ("mesh.durable.rejected.*", "counter"), ("mesh.contract.refused", "counter"),
     ("obs.overhead.count_probe", "counter"), ("obs.overhead.gauge_probe", "gauge"),
 }
 

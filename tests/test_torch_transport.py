@@ -226,6 +226,26 @@ def test_queue_pair_roundtrip_and_close_as_jax():
         a.recv(timeout=0.01)
 
 
+def test_callable_transport_relays_frames_as_jax():
+    """A ``(send, recv)`` pair as a transport: frames pass through in
+    order, ``recv``'s timeout is advisory and ``close`` is a no-op."""
+    import queue
+
+    for cls in (transport.CallableTransport, jtransport.CallableTransport):
+        q = queue.Queue()
+        t = cls(q.put, q.get)
+        assert isinstance(t, transport.Transport if cls is transport.CallableTransport
+                          else jtransport.Transport)
+        with t:
+            for frame in (b"", b"one", bytes(range(256)) * 40):
+                t.send(frame)
+            assert [t.recv(), t.recv(timeout=0.0), t.recv(timeout=1.0)] == \
+                [b"", b"one", bytes(range(256)) * 40]
+        t.close()
+        t.send(b"after close")  # the callables own the channel
+        assert t.recv() == b"after close"
+
+
 def test_resilient_clean_channel_is_transparent():
     ta, tb = queue_pair(default_timeout=5.0)
     ra = ResilientTransport(ta, FAST, name="a", seed=1)
