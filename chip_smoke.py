@@ -289,15 +289,35 @@ Phases, in order; any failure ends the run with a nonzero exit:
    written ones).  Every launch of the merge kernel is held against
    ``merge_reference``.  One ``mesh`` JSON line carries the numbers.
 
+17. the tools as users run them — each a child process on the card
+   (``python -m crdt_tpu_torch.tools.<tool> --device cuda``), all started
+   together, each with a timeout; a child that fails fails the phase:
+   ``replicate_tcp`` at 1.25M objects (A=8, M=32, D=8, u32, 5%
+   divergence: two OS processes, default framing, each side 62,500 delta
+   objects and no full state), its gossip fleet (3 nodes of 62,500
+   objects, ``--ops 4096 --reads 512 --gc --durable <dir> --window 16``:
+   the kill and recovery lines, no full-state fallback, CONVERGED) and its
+   mesh (8 shards of 250,000 objects, BYTE-IDENTICAL); ``wire_zoo``,
+   ``pprint``, ``anti_entropy`` (its skip lines for steps 4 and 5 on one
+   card) and ``multihost --ranks 1``.  Each child that merges must report
+   merge-kernel launches.  While they run, one merge of the gossip's
+   over-provisioned planes (M=128, the plain wide path; 4,096 objects) is
+   held against the same merge on the CPU, and both demo fleets are rebuilt
+   in process by the tool's fleet code; after they exit, those fleets are
+   merged by the merge kernel (timed alone on the card), held against
+   ``merge_reference``, and the merge's digest fingerprint must equal both
+   children's.  One ``tools`` JSON line: each run's wall, its children's
+   launches and wide merges, the gossip's sweeps, the in-process merge.
+
 Launch counts are reset just before phase 4 and read just after, around
-phase 5, around each of phases 6 to 16 (and within phase 10 around each
+phase 5, around each of phases 6 to 17 (and within phase 10 around each
 step of its main path: the replicas' plunger, the session step, the GC
 pass and the truncate; within phases 12 to 14 around their sessions,
 rounds, writes, kill and rejoin; the checks between them are not
 counted).  Every phase prints one JSON line (``environment``,
 ``main_path``, ``wire``, ``wire_routes``, ``op``, ``flat_types``,
 ``maps``, ``sync_gc``, ``reads``, ``cluster``, ``gossip``, ``durable``,
-``collectives``, ``mesh``) with its wall seconds, peak device memory and
+``collectives``, ``mesh``, ``tools``) with its wall seconds, peak device memory and
 the card.  The last lines are the kernel table (JSON), the card's name
 and power limit, and ``{"ok": true, "device": ...}``.  Needs one CUDA
 card; exits nonzero without one.
@@ -393,9 +413,10 @@ N_TOTAL, A, M, D, R, CHUNK = 1_250_000, 64, 16, 2, 8, 62_500
 BASE, NOVEL, DEFERRED_FRAC = 6, 1, 0.25
 U_CAP = 16
 CHECK_N = 4096
-# phase 6 encodes chunks until WIRE_PREP_S (at least WIRE_MIN_CHUNKS); 40 s,
-# not 75 s: the chip budget's cut 6 (ROADMAP.md, section C)
-WIRE_MIN_CHUNKS, WIRE_PREP_S, WIRE_SAMPLE, WIRE_ROUNDS = 2, 40.0, 64, 2
+# phase 6 encodes chunks until WIRE_PREP_S (at least WIRE_MIN_CHUNKS): the chip
+# budget's cut 6 (ROADMAP.md, section C) took it from 75 s to 40 s, and cut 9
+# (the script ran 627 s with phase 17 on an H100) to 30 s
+WIRE_MIN_CHUNKS, WIRE_PREP_S, WIRE_SAMPLE, WIRE_ROUNDS = 2, 30.0, 64, 2
 # cut 8 (the same run): phase 6b holds to_binary of to_scalar against the
 # blobs on every WIRE_ROUTES_STRIDE-th object (the serde oracle took ~60 s
 # of the phase's 70.7 s); to_scalar itself runs on all of them
@@ -3830,6 +3851,115 @@ def mesh_phase(dev):
     return launches, rep
 
 
+# phase 17: the tools as children on the card (each run: tool, arguments);
+# the wide-merge check's fleet (M=128, as the gossip's --gc planes start)
+TOOLS_DEMO_N, TOOLS_GOSSIP_N, TOOLS_MESH_N, TOOLS_TIMEOUT_S = N_TOTAL, 62_500, 250_000, 480
+TOOLS_WIDE_N = 4096
+TOOLS_RUNS = {
+    "demo": ("replicate_tcp", "--objects", str(TOOLS_DEMO_N)),
+    "gossip": ("replicate_tcp", "--gossip", "3", "--objects", str(TOOLS_GOSSIP_N), "--ops", "4096",
+               "--reads", "512", "--gc", "--durable", DURABLE_DIR, "--window", "16"),
+    "mesh": ("replicate_tcp", "--mesh", "8", "--objects", str(TOOLS_MESH_N)),
+    "wire_zoo": ("wire_zoo",), "pprint": ("pprint",), "anti_entropy": ("anti_entropy",),
+    "multihost": ("multihost", "--ranks", "1"),
+}
+# what each run's output must hold (regular expressions)
+TOOLS_LINES = {
+    "demo": [rf"{role}: {TOOLS_DEMO_N} objects  mode=delta .* delta_objects={TOOLS_DEMO_N // 20} "
+             r".* full=0B  CONVERGED" for role in ("client", "server")] + [r"demo: CONVERGED"],
+    "gossip": [r"kill: n1 killed -9", r"recovery: n1 restored generation",
+               r"full-state fallbacks=0", r"reads: quiescent frontier-mode sweep all-rows-stable",
+               rf"gossip: 3 peers x {TOOLS_GOSSIP_N} objects  sweeps=\d+  CONVERGED"],
+    "mesh": [rf"digest parity vs unsharded control: BYTE-IDENTICAL \({TOOLS_MESH_N} lanes"],
+    "wire_zoo": [r"wire zoo: all 9 type families converged"],
+    "pprint": [r"orswot\[0\]:\t\{apple, pear\}", r"orswot\[1\]:\t\{plum\}"],
+    "anti_entropy": [r"4\. collective join skipped \(1 devices < 8\)",
+                     r"5\. typed collective joins skipped \(1 devices < 8\)",
+                     r"anti-entropy walkthrough: OK"],
+    "multihost": [r"rank 0: topology=replicas objects=8 processes=1 MULTIHOST OK "
+                  r"k2_launches=[1-9]", r"launcher: MULTIHOST OK"],
+}
+
+
+def run_children(runs: dict, timeout_s: float, meanwhile=None) -> tuple:
+    """Start every run at once as ``python -m crdt_tpu_torch.tools.<tool>
+    --device cuda ...``, call ``meanwhile()`` while they run; returns
+    ``(name -> (stdout, wall seconds), what meanwhile returned)``.  A
+    child that exits non-zero or outlives ``timeout_s`` fails the phase."""
+    from crdt_tpu_torch.tools import run_all
+
+    done, mid = run_all([[sys.executable, "-m", f"crdt_tpu_torch.tools.{tool}", "--device",
+                          "cuda", *args] for tool, *args in runs.values()], timeout_s,
+                        capture=True, meanwhile=meanwhile)
+    for name, (rc, out, err, _) in zip(runs, done):
+        if rc != 0:
+            raise AssertionError(f"tool run {name} exited {rc} (None: outlived {timeout_s} s):\n"
+                                 f"{out[-3000:]}\n{err[-3000:]}")
+    return {name: (out, wall) for name, (_, out, _, wall) in zip(runs, done)}, mid
+
+
+def tools_phase(dev):
+    """Phase 17: the tools as children on the card.  Returns the merge
+    kernel's launches the children reported."""
+    from crdt_tpu_torch.tools import digest_sha
+    from crdt_tpu_torch.tools import replicate_tcp as rt
+
+    uni = rt.identity_universe()
+
+    def meanwhile():
+        """While the children run: the demo's fleets again, in process,
+        and one merge on the gossip's over-provisioned planes (M=128, the
+        plain wide path) held against the same merge on the CPU."""
+        a, b = (rt.build_batch(TOOLS_WIDE_N, actor, 0.05, 42, uni, dev).with_capacity(
+            4 * uni.config.member_capacity, 4 * uni.config.deferred_capacity) for actor in (1, 2))
+        before = _build.launch_counts()
+        got = a.merge(b)
+        after = _build.launch_counts()
+        if (after[_build.WIDE_MERGES] - before[_build.WIDE_MERGES], after["orswot_merge"]
+                - before["orswot_merge"]) != (1, 0):
+            raise AssertionError(f"the M=128 merge did not take the wide path: {after}")
+        cpu = [OrswotBatch(*(x.cpu() for x in tree_leaves(p))) for p in (a, b)]
+        if got.to_wire(uni) != cpu[0].merge(cpu[1]).to_wire(uni):
+            raise AssertionError("the wide merge on the card != the same merge on the CPU")
+        return [rt.build_batch(TOOLS_DEMO_N, actor, 0.05, 42, uni, dev) for actor in (1, 2)]
+
+    shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+    os.makedirs(DURABLE_DIR)
+    try:
+        done, (a, b) = run_children(TOOLS_RUNS, TOOLS_TIMEOUT_S, meanwhile)
+    finally:
+        shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+    # after the children exit, so the card is this process's alone: the
+    # demo's fleets merged by K2 (held against its plain version), the
+    # fingerprint both children must print
+    with K2Launches() as held:
+        merged, merge_ms, _ = timed_ms(lambda: a.merge(b))
+        held.check("the demo fleets' merge")
+    if not held.checked:
+        raise AssertionError("the demo fleets' merge never launched the merge kernel")
+    sha = digest_sha(digest_of(merged, uni))
+    rep, launches = {"runs": {}, "merge_ms": merge_ms, "wide_check_n": TOOLS_WIDE_N}, 0
+    for name, (out, wall) in done.items():
+        for pattern in TOOLS_LINES[name]:
+            if not re.search(pattern, out):
+                raise AssertionError(f"tool run {name}: no line /{pattern}/:\n{out[-3000:]}")
+        ev = [json.loads(ln) for ln in out.splitlines() if ln.startswith('{"role"')]
+        k2 = sum(e["k2_launches"] for e in ev) if ev else int(
+            re.search(r"k2_launches=(\d+)", out).group(1)) if name == "multihost" else 0
+        if name != "pprint" and not k2:
+            raise AssertionError(f"tool run {name} never launched the merge kernel")
+        launches += k2
+        rep["runs"][name] = {"wall_s": wall, "k2_launches": k2, "evidence": ev}
+    rep["gossip_sweeps"] = int(re.search(r"sweeps=(\d+)  CONVERGED", done["gossip"][0]).group(1))
+    rep["gossip_wide_merges"] = rep["runs"]["gossip"]["evidence"][0]["wide_merges"]
+
+    shas = {e["digest_sha256"] for e in rep["runs"]["demo"]["evidence"]}
+    if shas != {sha}:
+        raise AssertionError(f"the demo children's fingerprints {shas} != the merge's {sha}")
+    rep["demo_sha256"], rep["children_k2_launches"] = sha, launches
+    return launches, rep
+
+
 def main() -> int:
     # a native fault or abort prints every thread's Python stack first
     faulthandler.enable()
@@ -3929,6 +4059,8 @@ def main() -> int:
                      "the joins over NCCL)", collectives_phase, dev)
     run("mesh", "16: the mesh-sharded fleet (layout, step, shard-subset sync, member "
         "sharding, fleet snapshots)", mesh_phase, dev)
+    run("tools", "17: the tools as users run them (replicate_tcp's demo, gossip and mesh; "
+        "wire_zoo, pprint, anti_entropy, multihost), children on the card", tools_phase, dev)
     log("  threads alive at the end: "
         f"{[t.name for t in threading.enumerate() if t is not threading.main_thread()]}")
 

@@ -100,7 +100,10 @@ _RESTYPES = {
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LIBS_LOCK = threading.Lock()  # the wire loop's parse thread loads the codec too
-_LAUNCHES = {name: 0 for name in KERNELS}
+#: the counts' one key that is not a kernel: pairwise merges that took the
+#: plain wide path (member tables above 64 slots, which no kernel serves)
+WIDE_MERGES = "orswot_merge_wide"
+_LAUNCHES = {name: 0 for name in (*KERNELS, WIDE_MERGES)}
 _LAUNCHES_LOCK = threading.Lock()  # two sync peers launch from two threads
 #: build seconds and ptxas report of each library built by this process
 BUILD_LOG: dict[str, dict] = {}
@@ -243,7 +246,8 @@ def _count(name: str) -> None:
 
 
 def launch_counts() -> dict[str, int]:
-    """Successful launches of each kernel since the last reset."""
+    """Successful launches of each kernel since the last reset, and the
+    wide merges under :data:`WIDE_MERGES`."""
     with _LAUNCHES_LOCK:
         return dict(_LAUNCHES)
 

@@ -31,6 +31,7 @@ import warnings
 
 import torch
 
+from .. import _build
 from ..config import MERGE_IMPLS
 from ..dtypes import EMPTY, INT32_MAX, zero_of
 from . import clock_ops
@@ -239,6 +240,7 @@ def merge(
                 m_cap, d_cap, prebiased=True,
             )
     if not narrow:
+        _build._count(_build.WIDE_MERGES)
         return _merge_wide(
             clock_a, ids_a, dots_a, dids_a, dclocks_a,
             clock_b, ids_b, dots_b, dids_b, dclocks_b,

@@ -1157,3 +1157,47 @@ def test_mesh_step_and_member_sharding_over_nccl_equal_the_cpu(dev, nccl_world):
     assert got.live_members == want.live_members
     _equal([x.cpu() for x in _planes_of(got.batch.device)], _planes_of(want.batch.device))
     _equal([x.cpu() for x in gstate], wstate)
+
+
+def test_tools_replicate_tcp_demo_on_the_card_equals_the_cpu(dev):
+    """``replicate_tcp`` at 4,096 objects: two peers in process on the card
+    and on the CPU converge on the same blobs (the card's applies launch
+    the merge kernel), and the two-process demo on the card reports the
+    CPU merge's digest fingerprint from both children."""
+    import json
+    import pathlib
+    import socket
+    import subprocess
+    import sys
+    import threading
+
+    from crdt_tpu_torch.sync import digest_of
+    from crdt_tpu_torch.tools import digest_sha
+    from crdt_tpu_torch.tools import replicate_tcp as rt
+
+    n, blobs = 4096, {}
+    for d in ("cuda", "cpu"):
+        with socket.socket() as probe:
+            probe.bind(("127.0.0.1", 0))
+            port = probe.getsockname()[1]
+        out = {}
+        _build.reset_launch_counts()
+        legs = [threading.Thread(target=lambda r=r: out.update({r: rt.peer(r, port, n, d)}),
+                                 daemon=True) for r in ("server", "client")]
+        for t in legs:
+            t.start()
+        for t in legs:
+            t.join(timeout=300)
+        assert all(out[r][0].converged for r in ("server", "client"))
+        assert (_build.launch_counts()["orswot_merge"] > 0) == (d == "cuda")
+        blobs[d] = [out[r][1].to_wire(rt.identity_universe()) for r in ("server", "client")]
+        if d == "cpu":
+            sha = digest_sha(digest_of(out["server"][1], rt.identity_universe()))
+    assert blobs["cuda"] == blobs["cpu"] and blobs["cpu"][0] == blobs["cpu"][1]
+    proc = subprocess.run([sys.executable, "-m", "crdt_tpu_torch.tools.replicate_tcp",
+                           "--objects", str(n)], cwd=pathlib.Path(__file__).parent.parent,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-1500:]
+    ev = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith('{"role"')]
+    assert sorted(e["role"] for e in ev) == ["client", "server"]
+    assert all(e["k2_launches"] > 0 and e["digest_sha256"] == sha for e in ev), ev

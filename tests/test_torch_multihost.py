@@ -5,8 +5,9 @@ gloo ranks.
 ``initialize`` is a no-op with one process and no configuration, safe
 to call twice alike and raises when called again with another world; ``make_multihost_mesh`` leads with its DCN dims;
 ``local_shard`` tiles the objects exactly, as JAX's does;
-``python -m crdt_tpu_torch.tools.multihost`` joins fleets across two
-processes in both topologies.  The gloo joins at 1-8 ranks are
+``python -m crdt_tpu_torch.tools.multihost --device cpu`` joins fleets
+across two processes in both topologies, and its default device (one
+NCCL rank per card) refuses a missing card and more ranks than cards.  The gloo joins at 1-8 ranks are
 ``test_torch_collective.py``'s.
 """
 
@@ -145,8 +146,8 @@ def test_local_shard_tiles_exactly_as_jax(n, k):
 def test_multihost_tool_both_topologies_at_two_ranks():
     """Both topologies run at once, each two gloo ranks of its own."""
     runs = {topology: subprocess.Popen(
-        [sys.executable, "-m", "crdt_tpu_torch.tools.multihost", "--ranks", "2",
-         "--topology", topology], cwd=REPO, stdout=subprocess.PIPE,
+        [sys.executable, "-m", "crdt_tpu_torch.tools.multihost", "--device", "cpu", "--ranks",
+         "2", "--topology", topology], cwd=REPO, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for topology in ("replicas", "hybrid")}
     for topology, proc in runs.items():
         try:
@@ -160,3 +161,38 @@ def test_multihost_tool_both_topologies_at_two_ranks():
             assert (f"rank {rank}: topology={topology} objects=8 processes=2 "
                     "MULTIHOST OK") in out, out
         assert "launcher: MULTIHOST OK" in out
+
+
+def test_multihost_tool_default_device_without_a_card_exits_nonzero():
+    if torch.cuda.is_available():
+        pytest.skip("needs a machine without a card")
+    proc = subprocess.run([sys.executable, "-m", "crdt_tpu_torch.tools.multihost"], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "DeviceUnavailableError" in proc.stderr
+    assert "launcher:" not in proc.stdout  # nothing was spawned
+
+
+def test_multihost_tool_refuses_more_ranks_than_cards(monkeypatch, capsys):
+    from crdt_tpu_torch.tools import multihost
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(multihost, "spawn_ranks", lambda *a, **k: pytest.fail("spawned"))
+    with pytest.raises(SystemExit) as e:
+        multihost.main(["--ranks", "2"])
+    assert e.value.code == 2
+    assert "--ranks 2 needs 2 cards, 1 visible" in capsys.readouterr().err
+
+
+def test_multihost_tool_defaults_to_one_rank_per_card(monkeypatch, capsys):
+    from crdt_tpu_torch.tools import multihost
+
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(multihost, "spawn_ranks", lambda module, ranks, args: calls.append(
+        (module, ranks, args)) or 0)
+    assert multihost.main([]) == 0
+    assert calls == [("crdt_tpu_torch.tools.multihost", 1, [
+        "--device", "cuda", "--ranks", "1", "--topology", "replicas", "--objects", "8"])]
+    assert "launcher: MULTIHOST OK" in capsys.readouterr().out
