@@ -1142,6 +1142,14 @@ def wire_leg(dev):
     return k2_launches, rep, fleets[0]
 
 
+def _annotation(e) -> bool:
+    """A program span (``utils.tracing.span``) or its copy on the device
+    timeline: a ``key_averages()`` row or a raw record that marks a range
+    and is no device work of its own."""
+    probe = getattr(e, "is_user_annotation", False)
+    return bool(probe() if callable(probe) else probe)
+
+
 def profiled(run, ref_ms=None) -> dict:
     """``run()`` under ``torch.profiler``: the device time of its kernels
     and of its copies against its wall time (or ``ref_ms``, the same work
@@ -1157,7 +1165,7 @@ def profiled(run, ref_ms=None) -> dict:
         run()
         sync()
         wall = now() - t0
-    ev = prof.key_averages()
+    ev = [e for e in prof.key_averages() if not _annotation(e)]
     # device-side events only: a host op (aten::copy_) also reports the
     # device time of the copy it started
     dev_ev = [e for e in ev if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
@@ -2893,7 +2901,7 @@ def profiled_round(fleet, r: int) -> tuple:
         trace = sum(os.path.getsize(os.path.join(GOSSIP_PROFILE_DIR, f))
                     for f in os.listdir(GOSSIP_PROFILE_DIR))
         device = [e for e in prof.profiler.kineto_results.events()
-                  if e.device_type() == DeviceType.CUDA]
+                  if e.device_type() == DeviceType.CUDA and not _annotation(e)]
         busy = sum(e.duration_ns() for e in device) / 1e6
     finally:
         shutil.rmtree(GOSSIP_PROFILE_DIR, ignore_errors=True)

@@ -50,6 +50,7 @@ import torch
 from ..device import resolve_device
 from ..dtypes import torch_counter_dtype, zero_of
 from ..error import raise_for_overflow
+from ..utils.tracing import span
 from . import wirebulk
 from .orswot_batch import planes_to_wire
 
@@ -371,7 +372,10 @@ class PipelinedOpLoop:
         "still_parked", "pipeline", "stage_s": {parse, fold,
         stall}, "e2e_s"}``: ``parse`` is the decode, ``fold`` the
         ``apply_ops`` calls, ``stall`` the fold's waits on the decoder
-        (host clock); ``e2e_s`` ends after the device has finished."""
+        (host clock); ``e2e_s`` ends after the device has finished.
+        Under a profiler each frame is an ``oploop/frame`` span on the
+        folding thread, from asking for its ops to the end of its fold, and
+        each wait on the decoder an ``oploop/stall`` inside it."""
         from ..oplog.wire import decode_ops_frame
 
         frames = list(frames)
@@ -403,9 +407,10 @@ class PipelinedOpLoop:
 
             def staged():
                 while True:
-                    t0 = time.perf_counter()
-                    item = parsed_q.get()
-                    stage_s["stall"] += time.perf_counter() - t0
+                    with span("oploop/stall"):
+                        t0 = time.perf_counter()
+                        item = parsed_q.get()
+                        stage_s["stall"] += time.perf_counter() - t0
                     if item is _SENTINEL:
                         return
                     if isinstance(item, BaseException):
@@ -419,10 +424,14 @@ class PipelinedOpLoop:
             stream = (decode_one(f) for f in frames)
 
         try:
-            for ops in stream:
-                t0 = time.perf_counter()
-                batch, report = self.applier.apply_ops(batch, ops)
-                stage_s["fold"] += time.perf_counter() - t0
+            # one item a frame: a frame's span runs from asking for its ops
+            # (the decode, or the wait on the decoder) to the end of its fold
+            for _ in frames:
+                with span("oploop/frame"):
+                    ops = next(stream)
+                    t0 = time.perf_counter()
+                    batch, report = self.applier.apply_ops(batch, ops)
+                    stage_s["fold"] += time.perf_counter() - t0
                 stats["ops"] += report.ops
                 stats["applied"] += report.applied
                 stats["duplicates"] += report.duplicates

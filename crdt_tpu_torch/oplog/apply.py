@@ -7,7 +7,10 @@ slots, then one deferred replay ends them as the scalar ``apply`` does
 rounds of at most one per object; an add whose dot does not extend its
 actor's run on its object parks until its predecessors land.  The host
 plans on numpy columns and reads from the device only ``clock[obj,
-actor]`` and the touched id rows; the folds are torch ops on the device.
+actor]`` and the touched id rows; the folds are torch ops on the device.  Under a
+profiler a call is an ``oplog/apply`` span over its phases
+(``oplog/partition``, ``plan_slots``, ``fold_adds``, ``deferred_replay``,
+``removes`` with one ``remove_round`` a round).
 
 Counter and LWW planes have folds of their own
 (:func:`apply_gcounter_ops`, :func:`apply_pncounter_ops`,
@@ -28,6 +31,7 @@ import torch
 from ..dtypes import EMPTY, as_counters, counters_to_numpy, zero_of
 from ..error import CapacityOverflowError, ConflictingMarker, OpLogOverflowError
 from ..ops.orswot_ops import _apply_deferred
+from ..utils.tracing import span
 from .records import OP_ADD, OP_DEC, OP_INC, OP_RM, OP_SET, OpBatch, opbatch_nbytes
 
 #: member-id sentinel of an idle row in a remove round: it matches no
@@ -165,22 +169,25 @@ class OpApplier:
         """One scatter-fold of the ready adds, then one deferred replay
         when the fleet holds any deferred row (the scalar ``apply`` tail,
         `orswot.rs:78`; without one the replay is a no-op)."""
-        op_slot, po, pslot, pm = self._plan_slots(batch, ops)
+        with span("oplog/plan_slots"):
+            op_slot, po, pslot, pm = self._plan_slots(batch, ops)
         dev = batch.device
         m, a = batch.member_capacity, batch.clock.shape[1]
 
         def col(x):
             return torch.as_tensor(x, dtype=torch.int64, device=dev)
 
-        oo, oa, os_ = col(ops.obj), col(ops.actor), col(op_slot)
-        oc = as_counters(ops.counter, batch.clock.dtype, dev)
-        clock = _scatter_max(batch.clock, oo * a + oa, oc)
-        ids = _scatter_max(batch.ids, col(po) * m + col(pslot),
-                           torch.as_tensor(pm, dtype=torch.int32, device=dev))
-        dots = _scatter_max(batch.dots, (oo * m + os_) * a + oa, oc)
+        with span("oplog/fold_adds"):
+            oo, oa, os_ = col(ops.obj), col(ops.actor), col(op_slot)
+            oc = as_counters(ops.counter, batch.clock.dtype, dev)
+            clock = _scatter_max(batch.clock, oo * a + oa, oc)
+            ids = _scatter_max(batch.ids, col(po) * m + col(pslot),
+                               torch.as_tensor(pm, dtype=torch.int32, device=dev))
+            dots = _scatter_max(batch.dots, (oo * m + os_) * a + oa, oc)
         d_ids, d_clocks = batch.d_ids, batch.d_clocks
-        if bool((d_ids != EMPTY).any()):
-            ids, dots, d_ids, d_clocks = _apply_deferred(clock, ids, dots, d_ids, d_clocks)
+        with span("oplog/deferred_replay"):
+            if bool((d_ids != EMPTY).any()):
+                ids, dots, d_ids, d_clocks = _apply_deferred(clock, ids, dots, d_ids, d_clocks)
         return type(batch)(clock, ids, dots, d_ids, d_clocks)
 
     @staticmethod
@@ -201,12 +208,13 @@ class OpApplier:
         mem = torch.as_tensor(ops.member, device=dev)
         rm = as_counters(clocks, dt, dev)
         for k in range(int(rounds.max(initial=-1)) + 1):
-            sel = torch.as_tensor(order[rounds == k], device=dev)
-            member = torch.full((n,), _RM_IDLE, dtype=torch.int32, device=dev)
-            member.index_put_((obj[sel],), mem[sel])
-            rm_clock = torch.full((n, a), zero_of(dt), dtype=dt, device=dev)
-            rm_clock.index_put_((obj[sel],), rm[sel])
-            batch = batch.apply_remove(rm_clock, member, check=check)
+            with span("oplog/remove_round"):
+                sel = torch.as_tensor(order[rounds == k], device=dev)
+                member = torch.full((n,), _RM_IDLE, dtype=torch.int32, device=dev)
+                member.index_put_((obj[sel],), mem[sel])
+                rm_clock = torch.full((n, a), zero_of(dt), dtype=dt, device=dev)
+                rm_clock.index_put_((obj[sel],), rm[sel])
+                batch = batch.apply_remove(rm_clock, member, check=check)
             report.rm_rounds += 1
         return batch
 
@@ -218,39 +226,44 @@ class OpApplier:
         :class:`~crdt_tpu_torch.error.CapacityOverflowError` past the
         capacities, :class:`~crdt_tpu_torch.error.OpLogOverflowError` when
         the park buffer fills.  Re-delivery of applied ops is a no-op."""
-        report = ApplyReport()
-        parked, self._parked = self._parked, OpBatch.empty()
-        ops = OpBatch.concat([parked, ops])
-        report.ops = len(ops)
-        if len(ops) == 0:
-            return batch, report
-        is_add, is_rm = ops.kind == OP_ADD, ops.kind == OP_RM
-        if not bool((is_add | is_rm).all()):
-            raise ValueError("OpApplier folds ORSWOT add/rm ops; counter and LWW ops have "
-                             "planes of their own")
-        num_actors = self.universe.config.num_actors
-        ops.validate(batch.clock.shape[0], num_actors)
+        with span("oplog/apply"):
+            return self._apply_ops(batch, ops, check)
 
-        adds = ops.select(is_add)
-        dev = batch.device
-        base = counters_to_numpy(batch.clock[
-            torch.as_tensor(adds.obj, device=dev),
-            torch.as_tensor(adds.actor, dtype=torch.int64, device=dev)])
-        ready, dup, gap = self._partition_adds(base.astype(np.uint64), num_actors, adds)
-        report.duplicates = int(dup.sum())
-        # the parked adds were concatenated first: released = those that
-        # left the gap set, parked = fresh arrivals that entered it
-        n_parked_in = len(parked)
-        report.released = n_parked_in - int(gap[:n_parked_in].sum())
-        report.parked = int(gap[n_parked_in:].sum())
-        if bool(gap.any()):
-            gapped = adds.select(gap)
-            if len(gapped) > self.park_capacity:
-                raise OpLogOverflowError(
-                    f"causal-gap buffer full: {len(gapped)} gapped adds > park_capacity "
-                    f"{self.park_capacity} — the missing predecessor dots never arrived")
-            self._parked = gapped
-        report.still_parked = len(self._parked)
+    def _apply_ops(self, batch, ops: OpBatch, check: bool):
+        report = ApplyReport()
+        with span("oplog/partition"):
+            parked, self._parked = self._parked, OpBatch.empty()
+            ops = OpBatch.concat([parked, ops])
+            report.ops = len(ops)
+            if len(ops) == 0:
+                return batch, report
+            is_add, is_rm = ops.kind == OP_ADD, ops.kind == OP_RM
+            if not bool((is_add | is_rm).all()):
+                raise ValueError("OpApplier folds ORSWOT add/rm ops; counter and LWW ops "
+                                 "have planes of their own")
+            num_actors = self.universe.config.num_actors
+            ops.validate(batch.clock.shape[0], num_actors)
+
+            adds = ops.select(is_add)
+            dev = batch.device
+            base = counters_to_numpy(batch.clock[
+                torch.as_tensor(adds.obj, device=dev),
+                torch.as_tensor(adds.actor, dtype=torch.int64, device=dev)])
+            ready, dup, gap = self._partition_adds(base.astype(np.uint64), num_actors, adds)
+            report.duplicates = int(dup.sum())
+            # the parked adds were concatenated first: released = those that
+            # left the gap set, parked = fresh arrivals that entered it
+            n_parked_in = len(parked)
+            report.released = n_parked_in - int(gap[:n_parked_in].sum())
+            report.parked = int(gap[n_parked_in:].sum())
+            if bool(gap.any()):
+                gapped = adds.select(gap)
+                if len(gapped) > self.park_capacity:
+                    raise OpLogOverflowError(
+                        f"causal-gap buffer full: {len(gapped)} gapped adds > park_capacity "
+                        f"{self.park_capacity} — the missing predecessor dots never arrived")
+                self._parked = gapped
+            report.still_parked = len(self._parked)
 
         if bool(ready.any()):
             ready_ops = adds.select(ready)
@@ -259,7 +272,8 @@ class OpApplier:
             report.applied_adds = len(ready_ops)
         if bool(is_rm.any()):
             rms = ops.select(is_rm)
-            batch = self._fold_removes(batch, rms, check, report)
+            with span("oplog/removes"):
+                batch = self._fold_removes(batch, rms, check, report)
             report.applied_rms = len(rms)
 
         for k in ("ops", "applied", "duplicates", "parked", "released", "rm_rounds"):

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..dtypes import EMPTY, INT32_MAX
+from ..utils.tracing import span
 from . import clock_ops
 from .orswot_ops import _dedup_deferred, _stable_order, _take, _take_rows, _z, compact
 
@@ -110,7 +111,8 @@ def _settle_deferred(clock, keys, eclocks, vals, d_keys, d_clocks, vk):
     rm = torch.where(match[..., None], d_clocks[..., None, :, :], z).amax(dim=-2)
     new_e = clock_ops.subtract(eclocks, rm)
     live = ~clock_ops.is_empty(new_e) & (keys != EMPTY)
-    vals, over = vk.truncate(vals, rm)
+    with span("map/nested_truncate"):
+        vals, over = vk.truncate(vals, rm)
     keys = torch.where(live, keys, torch.full_like(keys, EMPTY))
     new_e = torch.where(live[..., None], new_e, z)
     vals = tree_where(live, vals, vk.zeros_like(vals))
@@ -135,18 +137,26 @@ def merge(state_a, state_b, vk, k_cap: int, d_cap: int):
     keys, eclocks, vals, d_keys, d_clocks)``.  Returns ``(state,
     overflow)``; the per-object flag is set when surviving keys exceed
     ``k_cap``, deferred rows exceed ``d_cap`` or a nested value
-    overflowed."""
+    overflowed.  Under a profiler: a ``map/merge`` span over ``map/align``,
+    ``map/nested_merge``, ``map/nested_truncate``, ``map/settle_deferred``
+    and ``map/compact``."""
+    with span("map/merge"):
+        return _merge(state_a, state_b, vk, k_cap, d_cap)
+
+
+def _merge(state_a, state_b, vk, k_cap: int, d_cap: int):
     clock_a, keys_a, ec_a, vals_a, dk_a, dc_a = state_a
     clock_b, keys_b, ec_b, vals_b, dk_b, dc_b = state_b
     z = _z(ec_a)
 
-    keys, idx_a, p_a, idx_b, p_b = align_keyed(keys_a, keys_b)
-    e1 = torch.where(p_a[..., None], _take_rows(ec_a, idx_a), z)
-    e2 = torch.where(p_b[..., None], _take_rows(ec_b, idx_b), z)
-    g1 = tree_gather(vals_a, idx_a)
-    v1 = tree_where(p_a, g1, vk.zeros_like(g1))
-    g2 = tree_gather(vals_b, idx_b)
-    v2 = tree_where(p_b, g2, vk.zeros_like(g2))
+    with span("map/align"):
+        keys, idx_a, p_a, idx_b, p_b = align_keyed(keys_a, keys_b)
+        e1 = torch.where(p_a[..., None], _take_rows(ec_a, idx_a), z)
+        e2 = torch.where(p_b[..., None], _take_rows(ec_b, idx_b), z)
+        g1 = tree_gather(vals_a, idx_a)
+        v1 = tree_where(p_a, g1, vk.zeros_like(g1))
+        g2 = tree_gather(vals_b, idx_b)
+        v2 = tree_where(p_b, g2, vk.zeros_like(g2))
 
     sc = clock_a[..., None, :]
     oc = clock_b[..., None, :]
@@ -172,9 +182,11 @@ def merge(state_a, state_b, vk, k_cap: int, d_cap: int):
     deleters = torch.where(both[..., None], del_both,
                            torch.where(only1[..., None], del_only1, del_only2))
 
-    v_merged, over_vm = vk.merge(v1, v2)
+    with span("map/nested_merge"):
+        v_merged, over_vm = vk.merge(v1, v2)
     vals = tree_where(both, v_merged, tree_where(only1, v1, v2))
-    vals, over_vt = vk.truncate(vals, deleters)
+    with span("map/nested_truncate"):
+        vals, over_vt = vk.truncate(vals, deleters)
 
     survive = ~clock_ops.is_empty(eclocks) & (p_a | p_b)
     keys = torch.where(survive, keys, torch.full_like(keys, EMPTY))
@@ -190,10 +202,12 @@ def merge(state_a, state_b, vk, k_cap: int, d_cap: int):
 
     # clock join (`map.rs:265`), then apply_deferred (`map.rs:267`)
     clock = clock_ops.merge(clock_a, clock_b)
-    keys, eclocks, vals, d_keys, d_clocks, over_def = _settle_deferred(
-        clock, keys, eclocks, vals, d_keys, d_clocks, vk)
-    keys, eclocks, vals, k_over = compact_keyed(keys, eclocks, vals, k_cap)
-    d_keys, d_clocks, d_over = compact(d_keys, d_clocks, d_cap)
+    with span("map/settle_deferred"):
+        keys, eclocks, vals, d_keys, d_clocks, over_def = _settle_deferred(
+            clock, keys, eclocks, vals, d_keys, d_clocks, vk)
+    with span("map/compact"):
+        keys, eclocks, vals, k_over = compact_keyed(keys, eclocks, vals, k_cap)
+        d_keys, d_clocks, d_over = compact(d_keys, d_clocks, d_cap)
     overflow = ((over_vm & both & survive).any(dim=-1) | (over_vt & survive).any(dim=-1)
                 | over_def | k_over | d_over)
     return (clock, keys, eclocks, vals, d_keys, d_clocks), overflow

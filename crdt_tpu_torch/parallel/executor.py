@@ -22,6 +22,9 @@ self-merge so buffered removes flush.  What happened is counted in
 :class:`JoinStats`, and each regrow and transient retry leaves an
 ``executor.regrow`` / ``executor.transient_retry`` flight-recorder event
 (:meth:`~crdt_tpu_torch.obs.capacity.CapacityTracker.regrow_timeline`).
+Under a profiler a join is an ``executor/join_all`` span, each pairwise
+merge of the fold an ``executor/merge`` and each regrow an
+``executor/regrow`` (:func:`~crdt_tpu_torch.utils.tracing.span`).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from typing import Any, Optional, Sequence
 
 from ..error import CapacityOverflowError, KernelError
 from ..obs import events as obs_events
+from ..utils.tracing import span
 
 
 @dataclasses.dataclass
@@ -100,16 +104,17 @@ class JoinExecutor:
         if not batches:
             raise ValueError("join_all needs at least one batch")
         stats = stats if stats is not None else JoinStats()
-        if self._use_tree(batches):
-            return self._join_tree(list(batches), plunger, stats)
-        acc = batches[0]
-        for nxt in batches[1:]:
-            acc, nxt = self._equalize(acc, nxt)
-            acc = self._merge_recovering(acc, nxt, stats)
-        if plunger:
-            acc = self._merge_recovering(acc, acc, stats)
-        stats.final_member_capacity, stats.final_deferred_capacity = _capacities(acc)
-        return acc
+        with span("executor/join_all"):
+            if self._use_tree(batches):
+                return self._join_tree(list(batches), plunger, stats)
+            acc = batches[0]
+            for nxt in batches[1:]:
+                acc, nxt = self._equalize(acc, nxt)
+                acc = self._merge_recovering(acc, nxt, stats)
+            if plunger:
+                acc = self._merge_recovering(acc, acc, stats)
+            stats.final_member_capacity, stats.final_deferred_capacity = _capacities(acc)
+            return acc
 
     def _use_tree(self, batches: Sequence[Any]) -> bool:
         if self.strategy not in ("sequential", "tree", "auto"):
@@ -188,8 +193,9 @@ class JoinExecutor:
             except CapacityOverflowError as overflow:
                 if not hasattr(batches[0], "with_capacity"):
                     raise
-                new_m, new_d = self._regrow(overflow, batches[0], "tree", stats)
-                batches = [b.with_capacity(new_m, new_d) for b in batches]
+                with span("executor/regrow"):
+                    new_m, new_d = self._regrow(overflow, batches[0], "tree", stats)
+                    batches = [b.with_capacity(new_m, new_d) for b in batches]
             except RuntimeError as err:
                 retries = self._retry(err, retries, "tree", stats)
 
@@ -209,15 +215,17 @@ class JoinExecutor:
         retries = 0
         while True:
             try:
-                out = acc.merge(nxt, check=True)
+                with span("executor/merge"):
+                    out = acc.merge(nxt, check=True)
                 stats.joins += 1
                 return out
             except CapacityOverflowError as overflow:
                 if not hasattr(acc, "with_capacity"):
                     raise
-                new_m, new_d = self._regrow(overflow, acc, "sequential", stats)
-                acc = acc.with_capacity(new_m, new_d)
-                nxt = nxt.with_capacity(new_m, new_d)
+                with span("executor/regrow"):
+                    new_m, new_d = self._regrow(overflow, acc, "sequential", stats)
+                    acc = acc.with_capacity(new_m, new_d)
+                    nxt = nxt.with_capacity(new_m, new_d)
             except RuntimeError as err:
                 retries = self._retry(err, retries, "sequential", stats)
 

@@ -1,6 +1,6 @@
-"""Profiler capture (the port of the JAX package's ``utils/tracing.py``
-``profile``; its span and counter tracer has no caller in the port,
-whose modules keep plain counts).
+"""Profiler capture and program spans (the port of the JAX package's
+``utils/tracing.py`` ``profile`` and ``span``; its counter tracer has no
+caller in the port, whose modules keep plain counts).
 
 :func:`profile` runs ``torch.profiler`` over its block (CPU activity,
 and CUDA activity when a card is there) and writes a Chrome trace into
@@ -9,6 +9,12 @@ caller: the block runs unprofiled, :func:`unavailable_count` goes up, and
 the first failure of each exception class leaves an
 ``obs.profiler_unavailable`` flight-recorder event.  The caller's own
 exceptions propagate.
+
+:func:`span` marks a phase of the program (``"executor/join_all"``) as a
+``record_function`` range, so it lands among the profiler's host records
+on the clock of its device records.  It records exactly while a torch
+profiler runs, :func:`profile` or any other; otherwise it is one flag
+check.  Names use ``/``: a dotted name would read as a metric.
 """
 
 from __future__ import annotations
@@ -18,9 +24,24 @@ import os
 import threading
 from typing import Iterator, Optional
 
+from torch.autograd import profiler as _profiler
+
 _LOCK = threading.Lock()
 _UNAVAILABLE = [0]
 _SEEN: set = set()
+#: what :func:`span` hands out while no profiler runs: stateless, so one
+#: instance serves every thread and every nesting
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``with span("oplog/apply"): ...``: a ``record_function`` range while
+    a torch profiler runs (the flag it sets on start is read first:
+    entering a range costs microseconds even with no profiler), else a
+    no-op context."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return _profiler.record_function(name)
 
 
 def unavailable_count() -> int:

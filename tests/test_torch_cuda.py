@@ -1201,3 +1201,29 @@ def test_tools_replicate_tcp_demo_on_the_card_equals_the_cpu(dev):
     ev = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith('{"role"')]
     assert sorted(e["role"] for e in ev) == ["client", "server"]
     assert all(e["k2_launches"] > 0 and e["digest_sha256"] == sha for e in ev), ev
+
+
+def test_join_spans_own_every_device_record_and_the_tracer_drops_their_copies(dev):
+    """A tree join of three fleets under the benchmark's tracer: its one
+    ``executor/join_all`` span owns every device record, the merge kernel's
+    three launches (made through ``ctypes``, under no aten op) included,
+    and the device-side copy of the span stays out of the tracer's device
+    records."""
+    from crdt_tpu_torch import JoinExecutor, OrswotBatch
+    from portbench import spans, trace
+
+    planes = _fleets(13, 4096, 64, 16, 2, 3, dev, deferred_frac=0.25)
+    fleets = [OrswotBatch(*(x[r] for x in planes)) for r in range(3)]
+    JoinExecutor().join_all(fleets)
+    _build.reset_launch_counts()
+    with trace.Tracer(dev) as tracer:
+        JoinExecutor().join_all(fleets)
+    launches = _build.launch_counts()["orswot_merge"]
+    found = spans.Spans.of(tracer)
+    assert [n for n, *_ in found.spans] == ["executor/join_all"]
+    assert launches == 3
+    assert sum("orswot_merge" in n for n, *_ in found.under("executor/join_all")) == launches
+    assert found.attributed_share() == 1.0
+    assert "executor/join_all" not in {n for n, _, _ in tracer.device_events}
+    assert sum(d for *_, d in tracer.device_events) == pytest.approx(
+        sum(d for _, _, d, _ in found.device))
